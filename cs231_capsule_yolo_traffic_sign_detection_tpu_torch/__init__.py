@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of the capsule-YOLO traffic-sign framework.
+
+    import cs231_capsule_yolo_traffic_sign_detection_tpu_torch as cyt_torch
+
+The JAX package ``cs231_capsule_yolo_traffic_sign_detection_tpu`` beside
+it is the reference; this package imports neither it nor ``jax``.  It
+holds the darknet_r serving path so far: DarkNet-19 at 448 px with BN
+folded into the convs, the fused input stage and pool+leaky as
+hand-written CUDA kernels for sm_90a (``csrc/``), the full-width grid
+decode and the detection metrics.  See README.md, "PyTorch port".
+"""
+
+from . import config  # noqa: F401
+from .params import Params  # noqa: F401

@@ -1,0 +1,91 @@
+"""CLI of the PyTorch port (darknet_r predict so far).
+
+    python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
+        --model darknet_r --mode predict --restore last \\
+        [--dtype float32|bfloat16] [--device cuda|cpu] [--model_dir DIR]
+
+Reads ``<model_dir>/params.json`` and ``<model_dir>/<restore>.ckpt``
+(the reference's torch format), predicts over the GTSDB test set or,
+when it is absent, the synthetic test set, and writes
+``<model_dir>/metric_output.txt`` as the JAX CLI does.  Any other model
+or mode exits with a "not ported yet" message.
+"""
+
+import argparse
+import os
+import pickle
+import sys
+
+import numpy as np
+
+from . import config
+from .data import loader
+from .metrics.detection import detect_AP, detect_acc
+from .params import Params
+from .predict import dark_pred
+
+PORTED = {("darknet_r", "predict")}
+
+parser = argparse.ArgumentParser(
+    prog="python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch")
+parser.add_argument("--model", default="darknet_r",
+                    help=" | ".join(config.model_names))
+parser.add_argument("--mode", default="predict", help="train | predict | "
+                    "overfit (only predict is ported)")
+parser.add_argument("--restore", default=None, help="last | best")
+parser.add_argument("--model_dir", default=None, help="model dir")
+parser.add_argument("--dtype", default="float32",
+                    help="serving dtype: float32 | bfloat16")
+parser.add_argument("--device", default="cuda", help="cuda | cpu")
+
+
+def load_test_frames(data_dir, model_name, params):
+    """GTSDB test frames (uint8) and grids; the synthetic set if absent."""
+    try:
+        with open(data_dir + "/test.p", "rb") as f:
+            x, y = pickle.load(f)
+    except (FileNotFoundError, OSError):
+        print("[predict] dataset absent; using synthetic test data")
+        _, _, x, y = loader.synthetic_dataset(model_name, params,
+                                              n_train=4, n_eval=16)
+    names_path = data_dir + "/test_names.npy"
+    if os.path.exists(names_path):
+        import cv2  # only for raw GTSDB frames on disk
+
+        return [cv2.imread(os.path.join(data_dir + "/raw_GTSDB", name))
+                for name in np.load(names_path)], y
+    # uint8 frames rebuilt from the stored centered tensors
+    return [np.clip(im * 128.0 + 128, 0, 255).astype(np.uint8)
+            for im in np.asarray(x)], y
+
+
+def main(argv=None):
+    args = parser.parse_args(argv)
+    if args.model not in config.model_names:
+        sys.exit("Did not recognize model, choose from: "
+                 + " ".join(config.model_names))
+    if (args.model, args.mode) not in PORTED:
+        sys.exit(f"--model {args.model} --mode {args.mode} is not ported "
+                 f"yet; ported: --model darknet_r --mode predict")
+    if args.restore is None:
+        sys.exit("Must give restore file last/best")
+
+    data_dir = config.data_dir[args.model]
+    model_dir = args.model_dir or config.model_dir[args.model]
+    params = Params(os.path.join(model_dir, "params.json"))
+    params.model = args.model
+    params.compute_dtype = args.dtype
+
+    x, y = load_test_frames(data_dir, args.model, params)
+    y_hat, _ = dark_pred(x, model_dir, params, args.restore,
+                         device=args.device)
+    metric_out = {"detect_AP": detect_AP(y, y_hat, params),
+                  "detect_acc": detect_acc(y, y_hat, params)}
+    with open(model_dir + "/metric_output.txt", "w") as text_file:
+        for k, v in metric_out.items():
+            text_file.write("{}:{}, ".format(k, v))
+            print("{}:{}, ".format(k, v))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,26 @@
+"""Static configuration constants (PyTorch port).
+
+The part of the JAX package's jax-free ``config.py`` that the port
+uses, copied: the port imports no module of the JAX package.
+"""
+
+model_names = ["cnn", "capsule", "darknet_d", "darknet_r", "darkcapsule"]
+
+GTSRB = "data/GTSRB"
+GTSDB = "data/GTSDB"
+
+data_dir = {
+    "cnn": GTSRB,
+    "capsule": GTSRB,
+    "darknet_d": GTSDB,
+    "darknet_r": GTSDB,
+    "darkcapsule": GTSDB,
+}
+
+model_dir = {
+    "cnn": "experiments/cnn",
+    "capsule": "experiments/capsule",
+    "darknet_d": "experiments/darknet_d",
+    "darknet_r": "experiments/darknet_r",
+    "darkcapsule": "experiments/darkcapsule",
+}

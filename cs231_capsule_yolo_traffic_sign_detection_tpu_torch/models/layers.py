@@ -1,0 +1,34 @@
+"""Shared building blocks (PyTorch port of the JAX models/layers.py)."""
+
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class ConvBNLeaky(nn.Module):
+    """conv -> BatchNorm -> LeakyReLU(0.1) [-> dropout], DarkNet's block.
+
+    A bias-free ``nn.Conv2d`` with symmetric padding (1 for k=3, 0 for
+    k=1), then ``nn.BatchNorm2d(eps=1e-5, momentum=0.01)`` (torch
+    momentum 0.01 is flax momentum 0.99, as the JAX block uses),
+    LeakyReLU(0.1) and dropout.
+    Children are named ``conv{suffix}``/``bn{suffix}``/``drop{suffix}``
+    with ``suffix = _{name_idx}``, the reference state_dict names.
+    Works on NCHW tensors, like every ``nn.Conv2d``.
+    """
+
+    def __init__(self, in_channels, features, kernel=3, dropout=0.0,
+                 name_idx=None):
+        super().__init__()
+        self.suffix = f"_{name_idx}" if name_idx is not None else ""
+        self.add_module("conv" + self.suffix, nn.Conv2d(
+            in_channels, features, kernel, padding=kernel // 2, bias=False))
+        self.add_module("bn" + self.suffix, nn.BatchNorm2d(
+            features, eps=1e-5, momentum=0.01))
+        self.add_module("drop" + self.suffix,
+                        nn.Dropout(dropout) if dropout > 0 else nn.Identity())
+
+    def forward(self, x):
+        x = getattr(self, "conv" + self.suffix)(x)
+        x = getattr(self, "bn" + self.suffix)(x)
+        x = F.leaky_relu(x, 0.1)
+        return getattr(self, "drop" + self.suffix)(x)

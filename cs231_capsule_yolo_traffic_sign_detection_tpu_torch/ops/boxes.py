@@ -1,0 +1,82 @@
+"""Host-side (numpy) box geometry: the subset of the JAX ops/boxes.py
+that the detector's data, decode and metrics use."""
+
+import numpy as np
+
+
+def xy_to_cwh(box_xy):
+    """Corner box [x1,y1,x2,y2] -> center box [xc,yc,w,h]."""
+    x1, y1, x2, y2 = box_xy
+    return [(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1]
+
+
+def normalize_box_cwh(image_hw, n_grid, box_cwh):
+    """Center box -> ([xc_cell, yc_cell, w_img, h_img], [row, col]):
+    the center relative to its grid cell, w/h relative to the image."""
+    image_h, image_w = image_hw
+    xc, yc, box_w, box_h = box_cwh
+    norm_w = 1.0 * box_w / image_w
+    norm_h = 1.0 * box_h / image_h
+    grid_w = 1.0 * image_w / n_grid
+    grid_h = 1.0 * image_h / n_grid
+    col = int(xc / grid_w)
+    row = int(yc / grid_h)
+    norm_xc = 1.0 * (xc - col * grid_w) / grid_w
+    norm_yc = 1.0 * (yc - row * grid_h) / grid_h
+    return [norm_xc, norm_yc, norm_w, norm_h], [row, col]
+
+
+def denorm_boxes_cwh_vec(image_hw, n_grid, norm_cwh, grid_indices):
+    """Grid-relative boxes (num_boxes, 4) at [row, col] grid_indices ->
+    image pixels.  image_hw: one (h, w) or (num_boxes, 2)."""
+    image_hw = np.asarray(image_hw, dtype=np.float64).reshape(-1, 2)
+    image_wh = image_hw[:, [1, 0]]
+    grids_wh = 1.0 * image_wh / n_grid
+    scale = np.concatenate((grids_wh, image_wh), axis=1)
+    cwh = np.asarray(norm_cwh, dtype=np.float64) * scale
+    cwh[:, 0:2] += np.asarray(grid_indices)[:, [1, 0]] * grids_wh
+    return cwh
+
+
+def cwh_to_xy_vec(cwh):
+    """(num_boxes, 4) center boxes -> corner boxes."""
+    cwh = np.asarray(cwh)
+    xy = np.empty_like(cwh)
+    half_w = cwh[:, 2] / 2
+    half_h = cwh[:, 3] / 2
+    xy[:, 0] = cwh[:, 0] - half_w
+    xy[:, 1] = cwh[:, 1] - half_h
+    xy[:, 2] = cwh[:, 0] + half_w
+    xy[:, 3] = cwh[:, 1] + half_h
+    return xy
+
+
+def y_to_boxes_vec(y, params, image_hw=None, conf_th=0.5):
+    """YOLO grid (batch, g, g, 5B+C) -> (image_indices, xy, classes or
+    None), boxes with conf > conf_th in grid-scan order.  image_hw: None
+    maps every box to darknet_input^2, else (batch, 2) sizes."""
+    y = np.asarray(y)
+    batch_size, n_grid, _, D = y.shape
+    C = params.n_classes
+    B = int((D - C) / 5)
+
+    y_boxes = y[:, :, :, 0:5 * B].reshape(batch_size, n_grid, n_grid, B, 5)
+    mask = y_boxes[:, :, :, :, 0] > conf_th
+    indices = np.argwhere(mask)  # (num_boxes, 4): [img, row, col, b]
+
+    cwh = y_boxes[mask][:, 1:5]
+    image_indices = indices[:, 0]
+    grid_indices = indices[:, 1:3]
+    if image_hw is None:
+        image_hw = (params.darknet_input, params.darknet_input)
+    else:
+        image_hw = np.asarray(image_hw)[image_indices]
+    xy = cwh_to_xy_vec(denorm_boxes_cwh_vec(image_hw, n_grid, cwh,
+                                            grid_indices))
+    if C != 0:
+        onehot = y[:, :, :, 5 * B:][indices[:, 0], indices[:, 1],
+                                    indices[:, 2]]
+        classes = np.argmax(onehot, axis=1)
+    else:
+        classes = None
+    return image_indices, xy, classes

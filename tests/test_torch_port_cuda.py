@@ -1,0 +1,77 @@
+"""PyTorch port on the card: the CUDA kernels against their plain
+versions, and dark_pred on the card against dark_pred on the CPU.
+
+Every test here needs a CUDA card and skips without one.  This file
+imports nothing of JAX, so it also runs on a machine without it:
+
+    python -m pytest tests/test_torch_port_cuda.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import predict
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import loader
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
+    resolve_device)
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import DarkNet
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
+    input_stage as ist, pool)
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.params import Params
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
+    checkpoint as ckpt)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    resolve_device("cuda")  # TF32 off for the plain convs
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 56, 56, 256), (3, 6, 10, 5)])
+def test_pool_kernel_matches_plain(card, dtype, shape):
+    x = torch.randn(shape, generator=card, device="cuda").to(dtype)
+    got = pool.maxpool2_leaky(x)
+    torch.cuda.synchronize()
+    # exact in both types: max and the slope round once, as the plain
+    assert torch.equal(got, pool.maxpool2_leaky_plain(x))
+
+
+def test_pool_kernel_refuses_non_nhwc(card):
+    x = torch.randn((2, 8, 8, 16), generator=card, device="cuda")
+    with pytest.raises(ValueError, match="NHWC"):
+        pool.maxpool2_leaky(x.transpose(1, 2))
+
+
+def test_input_stage_kernel_matches_plain(card):
+    x = torch.rand((2, 448, 448, 3), generator=card, device="cuda") * 2 - 1
+    w = 0.3 * torch.randn((3, 3, 3, 32), generator=card, device="cuda")
+    b = torch.randn((32,), generator=card, device="cuda")
+    got = ist.input_stage(x, w, b)
+    wp, bp = ist.phase_kernel(w, b)
+    # f32, 27-term sums in another order
+    torch.testing.assert_close(got, ist.input_stage_apply(x, wp, bp, 32),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_dark_pred_on_card_matches_cpu(card, tmp_path):
+    params = Params(model="darknet_r", n_classes=43, n_boxes=1, n_grid=2,
+                    darknet_input=64, batch_size=4)
+    torch.manual_seed(0)
+    ckpt.save_checkpoint({"epoch": 0, "optim_dict": {}, "state_dict":
+                          DarkNet(1, 43).state_dict()}, False, str(tmp_path))
+    _, _, x, _ = loader.synthetic_dataset("darknet_r", params, 0, 8)
+    frames = list(np.clip(x * 128.0 + 128, 0, 255).astype(np.uint8))
+    ist.input_stage.launches = pool.maxpool2_leaky.launches = 0
+    y_card, _ = predict.dark_pred(frames, str(tmp_path), params, "last",
+                                  device="cuda")
+    assert (ist.input_stage.launches, pool.maxpool2_leaky.launches) == (2, 8)
+    y_cpu, _ = predict.dark_pred(frames, str(tmp_path), params, "last",
+                                 device="cpu")
+    np.testing.assert_allclose(y_card, y_cpu, atol=5e-5)
