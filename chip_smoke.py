@@ -20,7 +20,20 @@ Run from the repository root on a machine with a card and nvcc.  Phases
 6. timings with CUDA events: each kernel beside its bound for its data
    type, its plain version and the PyTorch yardstick composition, and
    forward+decode img/s at batch 32 with a torch.profiler breakdown of
-   the same calls (kernel time by group, device busy share).
+   the same calls (kernel time by group, device busy share);
+7. K3 routing against its plain version at CapsuleNet's shape
+   [64, 1296, 8] x [1296, 43, 8, 16] (f32 rtol 2e-5 / atol 2e-6, bf16
+   rtol .05 / atol 5e-3), at a ragged shape and at a saturating input;
+8. the capsule classifier's serving slice at full width (CapsuleNet,
+   43 classes, seeded weights) through `class_pred`, as the CLI calls
+   it, over 512 synthetic crops in batches of 64, f32 then bf16: K3 must
+   launch once per batch, the scores must match an eval forward in the
+   same dtype with the plain routing on the card (K3's bands), and the
+   argmax classes must agree away from ties;
+9. timings: K3 per batch beside its bound, its plain version, its time
+   at one iteration (the votes pass without logits) and the count of
+   CUDA kernels one call issues; capsule serving img/s at batch 64 with
+   the profile of the same calls.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -42,10 +55,11 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import loader
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
     resolve_device)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.metrics import (
-    detection as det)
-from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import DarkNet
+    classification as clsm, detection as det)
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
+    CapsuleNet, DarkNet)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
-    _build, decode, input_stage as ist, pool)
+    _build, capsule as caps, decode, input_stage as ist, pool, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
     checkpoint as ckpt)
 
@@ -59,8 +73,13 @@ BATCH = 32
 BF16_BANDS = {"confidence": 2e-2, "box": 2e-2, "class": 2e-3}
 POOL_SHAPES = [(BATCH, 224, 224, 64), (BATCH, 112, 112, 128),
                (BATCH, 56, 56, 256), (BATCH, 28, 28, 512)]
+# the capsule slice: batch 64 (experiments/capsule/params.json), 8 batches
+CAPS_BATCH, CAPS_CROPS = 64, 512
+# K3's bands: those of tests/test_pallas_routing.py
+K3_TOL = {False: dict(rtol=2e-5, atol=2e-6), True: dict(rtol=0.05, atol=5e-3)}
 # kernel-name substrings for the serving profile's groups, first match wins
-GROUPS = (("input_stage", ("input_stage_kernel",)),
+GROUPS = (("routing", ("routing_pass_kernel", "routing_squash_kernel")),
+          ("input_stage", ("input_stage_kernel",)),
           ("pool_leaky", ("pool_leaky_kernel",)),
           ("leaky_relu", ("leaky_relu",)),
           ("bias add", ("functor_add",)),
@@ -396,6 +415,191 @@ def time_serving(model, frames):
             profile_ms(fwd_decode, ms)
 
 
+def check_routing():
+    """Phase 7: K3 against its plain version; returns the f32 max abs
+    error at CapsuleNet's shape."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = None
+    for (b, n, k), scale in (((CAPS_BATCH, 1296, 43), 1.0),
+                             ((3, 150, 5), 1.0),      # partial tiles, groups
+                             ((CAPS_BATCH, 1296, 43), 10.0)):  # saturates
+        x = scale * torch.randn((b, n, 8), generator=g, device="cuda")
+        # 0.1 N(0, 1), as models/init.py draws the route weights
+        w = 0.1 * torch.randn((n, k, 8, 16), generator=g, device="cuda")
+        for bf16 in (False, True):
+            got = routing.routed_capsules(x, w, 3, bf16=bf16)
+            torch.cuda.synchronize()
+            want = routing.routed_capsules_plain(x, w, 3, bf16=bf16)
+            err = (got - want).abs().max().item()
+            print(f"[K3] routing x {(b, n, 8)} scale {scale} w {(n, k, 8, 16)}"
+                  f" {'bf16' if bf16 else 'f32'}: max_abs_err {err}, caps "
+                  f"|max| {want.abs().max().item()}")
+            torch.testing.assert_close(got, want, **K3_TOL[bf16])
+            if worst is None:
+                worst = err
+    return worst
+
+
+def seeded_capsulenet(seed=0):
+    """Full-width CapsuleNet (43 classes) with torch-default init from
+    ``seed``; the two convs are scaled (x3, x10) so the primary capsules
+    are near unit length and the class scores spread out."""
+    torch.manual_seed(seed)
+    model = CapsuleNet(n_classes=43)
+    with torch.no_grad():
+        model.conv1.weight.mul_(3.0)
+        for m in model.primary_capsules.capsules:
+            m.weight.mul_(10.0)
+    return model
+
+
+def plain_scores(model, x, dtype):
+    """Eval forward of ``model`` in ``dtype`` with the plain routing."""
+    with torch.inference_mode():
+        h = F.relu(F.conv2d(x.permute(0, 3, 1, 2).to(dtype),
+                            model.conv1.weight.to(dtype),
+                            model.conv1.bias.to(dtype)))
+        u = model.primary_capsules(h, dtype)
+        w = model.traffic_sign_capsules.route_weights[0]
+        return caps.capsule_norm(routing.routed_capsules_plain(
+            u, w, 3, bf16=dtype == torch.bfloat16))
+
+
+def run_capsule_slice(crops, y_true, model_dir, params):
+    """Phase 8: the capsule slice through class_pred, f32 then bf16;
+    returns the f32 run's launch counts."""
+    model = predict.restore_capsule(params, model_dir, "last").cuda()
+    n_batches = -(-len(crops) // CAPS_BATCH)
+    refs = {}
+    for dtype in ("float32", "bfloat16"):
+        refs[dtype] = ref_np = torch.cat([plain_scores(
+            model, torch.from_numpy(crops[i:i + CAPS_BATCH]).cuda(),
+            getattr(torch, dtype)) for i in range(0, len(crops),
+                                                  CAPS_BATCH)]).cpu().numpy()
+        print(f"[capsule] {dtype} reference scores (plain routing): min "
+              f"{ref_np.min()} max {ref_np.max()} std {ref_np.std()}; "
+              f"argmax classes used {len(np.unique(ref_np.argmax(1)))} of 43")
+    print("[capsule] bf16 reference vs f32 reference: max_abs_diff "
+          f"{np.abs(refs['bfloat16'] - refs['float32']).max()}")
+    for dtype in ("float32", "bfloat16"):
+        ref_np = refs[dtype]
+        params.compute_dtype = dtype
+        routing.routed_capsules.launches = 0
+        pool.maxpool2_leaky.launches = ist.input_stage.launches = 0
+        t0 = time.perf_counter()
+        y_hat, classes = predict.class_pred(crops, model_dir, params, "last",
+                                            device="cuda")
+        wall = time.perf_counter() - t0
+        launches = {"routing": routing.routed_capsules.launches,
+                    "pool_leaky": pool.maxpool2_leaky.launches,
+                    "input_stage": ist.input_stage.launches}
+        print(f"[capsule] {dtype}: class_pred over {len(crops)} crops in "
+              f"{wall:.3f} s (host clock, restore included); launches "
+              f"{launches} for {n_batches} batches")
+        require(launches == {"routing": n_batches, "pool_leaky": 0,
+                             "input_stage": 0},
+                f"{dtype}: kernel launches {launches}")
+        require(y_hat.shape == ref_np.shape and np.isfinite(y_hat).all(),
+                f"{dtype}: scores shape/finite")
+        err = np.abs(y_hat - ref_np)
+        print(f"[capsule] {dtype}: scores vs the {dtype} plain-routing "
+              f"forward max_abs_err {err.max()} mean {err.mean()}")
+        np.testing.assert_allclose(y_hat, ref_np,
+                                   **K3_TOL[dtype == "bfloat16"])
+        top2 = np.sort(ref_np, axis=1)[:, -2:]
+        tied = top2[:, 1] - top2[:, 0] <= 2 * err.max()
+        differ = classes != ref_np.argmax(1)
+        require(not (differ & ~tied).any(), f"{dtype}: classes differ "
+                "away from ties")
+        print(f"[capsule] {dtype}: argmax classes equal but {differ.sum()} "
+              f"(of {tied.sum()} crops whose top two reference scores tie "
+              f"within {2 * err.max()})")
+        metrics = {"recog_pr": clsm.recog_pr(y_true, y_hat, params),
+                   "recog_acc": clsm.recog_acc(y_true, y_hat, params),
+                   "recog_auc": clsm.recog_auc(y_true, y_hat, params)}
+        require(all(np.isfinite(v) for v in metrics.values()),
+                f"{dtype}: metrics not finite")
+        print(f"[capsule] {dtype}: {metrics} (random weights: a finiteness "
+              "check only)")
+        if dtype == "float32":
+            f32_launches = launches
+    return f32_launches
+
+
+def routing_bound(b, n, k, bf16, n_iter=3):
+    """K3's least time: votes 2*B*N*K*8*16 (tensor cores in bf16) plus
+    2 * n_iter - 1 node-sized routing passes of 2*B*N*K*16 in f32 on
+    the CUDA cores; bytes are x and W in their type and the f32 caps."""
+    s = 2 if bf16 else 4
+    n_bytes = s * (b * n * 8 + n * k * 8 * 16) + 4 * b * k * 16
+    votes = 2 * b * n * k * 8 * 16
+    passes = (2 * n_iter - 1) * 2 * b * n * k * 16
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (votes / FLOP_PER_S[torch.bfloat16 if bf16 else torch.float32]
+             + passes / FLOP_PER_S[torch.float32]) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes, votes, passes)
+
+
+def count_kernels(fn):
+    """CUDA kernels one call of ``fn`` issues (torch.profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0)
+
+
+def time_routing(w_model):
+    """K3 at CapsuleNet's shape with the slice's route weights, per
+    dtype: kernel, plain version, bound, kernels per call."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((CAPS_BATCH, 1296, 8), generator=g, device="cuda")
+    out = {}
+    for bf16 in (False, True):
+        io = torch.bfloat16 if bf16 else torch.float32
+        xi, wi = x.to(io), w_model.to(io)  # operands as the kernel reads them
+        t = {"ms": time_ms(lambda: routing.routed_capsules(xi, wi, 3, bf16)),
+             # one iteration: the votes pass alone, no logits or softmax
+             "ms_1": time_ms(lambda: routing.routed_capsules(xi, wi, 1, bf16)),
+             "plain_ms": time_ms(lambda: routing.routed_capsules_plain(
+                 x, w_model, 3, bf16))}
+        t["bound_ms"], t["bound_by"], nb, votes, passes = routing_bound(
+            CAPS_BATCH, 1296, 43, bf16)
+        t["kernels"] = count_kernels(
+            lambda: routing.routed_capsules(xi, wi, 3, bf16))
+        name = "bf16" if bf16 else "f32"
+        print(f"[time] routing x {tuple(x.shape)} w {tuple(w_model.shape)} "
+              f"{name}: kernel {t['ms']:.4f} ms ({t['kernels']} CUDA kernels "
+              f"per call), bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+              f"{nb} bytes, votes {votes} + routing {passes} FLOP), plain "
+              f"(compute_priors+dynamic_routing) {t['plain_ms']:.4f} ms; "
+              f"n_iter 1 (votes pass + squash) {t['ms_1']:.4f} ms, each "
+              f"later iteration {(t['ms'] - t['ms_1']) / 2:.4f} ms")
+        out[bf16] = t
+    return out
+
+
+def time_capsule_serving(model, crops):
+    """CapsuleNet serving forward at batch 64 on device-resident crops:
+    CUDA-event wall time, then the profile of the same calls."""
+    x = torch.from_numpy(crops[:CAPS_BATCH]).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        model.dtype = dtype
+        with torch.inference_mode():
+            ms = time_ms(lambda: model(x), iters=10)
+            print(f"[time] capsule serving forward batch {CAPS_BATCH} "
+                  f"{str(dtype)[6:]}: {ms:.3f} ms = "
+                  f"{CAPS_BATCH / ms * 1e3:.1f} img/s")
+            profile_ms(lambda: model(x), ms)
+    model.dtype = torch.float32
+
+
 def main():
     # phase 1
     require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -439,6 +643,28 @@ def main():
     k2 = time_input_stage(model.state_dict())[torch.float32]
     time_serving(model, frames)
 
+    # phase 7
+    k3_err = check_routing()
+
+    # phase 8
+    cparams = Params(os.path.join(HERE, "experiments", "capsule",
+                                  "params.json"), model="capsule")
+    require((cparams.batch_size, cparams.n_classes) == (CAPS_BATCH, 43),
+            "capsule config")
+    _, _, crops, labels = loader.synthetic_dataset("capsule", cparams, 0,
+                                                   CAPS_CROPS)
+    cmodel_dir = os.path.join(HERE, "build", "chip_smoke", "capsule")
+    ckpt.save_checkpoint({"epoch": 0, "optim_dict": {},
+                          "state_dict": seeded_capsulenet().state_dict()},
+                         False, cmodel_dir)
+    caps_launches = run_capsule_slice(crops, labels, cmodel_dir, cparams)
+
+    # phase 9
+    cparams.compute_dtype = "float32"
+    cmodel = predict.restore_capsule(cparams, cmodel_dir, "last").cuda()
+    k3 = time_routing(cmodel.traffic_sign_capsules.route_weights[0].detach())
+    time_capsule_serving(cmodel, crops)
+
     pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu_torch"
     jax_pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu"
     print(json.dumps({"kernels": [
@@ -456,6 +682,14 @@ def main():
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": k2["library_ms"]},
+        # no one PyTorch call computes dynamic routing: no library_ms
+        {"name": "routing", "route": "cuda",
+         "source": f"{pkg}/csrc/routing.cu",
+         "replaces": f"{jax_pkg}/ops/routing_pallas.py:262",
+         "launches": caps_launches["routing"], "max_abs_err": k3_err,
+         "ms": k3[False]["ms"], "plain_ms": k3[False]["plain_ms"],
+         "bound_ms": k3[False]["bound_ms"],
+         "bound_by": k3[False]["bound_by"], "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

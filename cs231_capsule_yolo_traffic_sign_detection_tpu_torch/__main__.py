@@ -1,12 +1,13 @@
-"""CLI of the PyTorch port (darknet_r predict so far).
+"""CLI of the PyTorch port (darknet_r and capsule predict so far).
 
     python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
-        --model darknet_r --mode predict --restore last \\
+        --model darknet_r|capsule --mode predict --restore last \\
         [--dtype float32|bfloat16] [--device cuda|cpu] [--model_dir DIR]
 
 Reads ``<model_dir>/params.json`` and ``<model_dir>/<restore>.ckpt``
-(the reference's torch format), predicts over the GTSDB test set or,
-when it is absent, the synthetic test set, and writes
+(the reference's torch format), predicts over the test set (GTSDB
+frames for the detector, GTSRB crops for the classifier) or, when it is
+absent, the synthetic test set, and writes
 ``<model_dir>/metric_output.txt`` as the JAX CLI does.  Any other model
 or mode exits with a "not ported yet" message.
 """
@@ -20,11 +21,12 @@ import numpy as np
 
 from . import config
 from .data import loader
+from .metrics.classification import recog_acc, recog_auc, recog_pr
 from .metrics.detection import detect_AP, detect_acc
 from .params import Params
-from .predict import dark_pred
+from .predict import class_pred, dark_pred
 
-PORTED = {("darknet_r", "predict")}
+PORTED = {("darknet_r", "predict"), ("capsule", "predict")}
 
 parser = argparse.ArgumentParser(
     prog="python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch")
@@ -39,15 +41,21 @@ parser.add_argument("--dtype", default="float32",
 parser.add_argument("--device", default="cuda", help="cuda | cpu")
 
 
-def load_test_frames(data_dir, model_name, params):
-    """GTSDB test frames (uint8) and grids; the synthetic set if absent."""
+def load_test_set(data_dir, model_name, params):
+    """The test set as stored (``test.p``); the synthetic set if absent."""
     try:
         with open(data_dir + "/test.p", "rb") as f:
-            x, y = pickle.load(f)
+            return pickle.load(f)
     except (FileNotFoundError, OSError):
         print("[predict] dataset absent; using synthetic test data")
         _, _, x, y = loader.synthetic_dataset(model_name, params,
                                               n_train=4, n_eval=16)
+        return x, y
+
+
+def load_test_frames(data_dir, model_name, params):
+    """GTSDB test frames (uint8) and grids; the synthetic set if absent."""
+    x, y = load_test_set(data_dir, model_name, params)
     names_path = data_dir + "/test_names.npy"
     if os.path.exists(names_path):
         import cv2  # only for raw GTSDB frames on disk
@@ -65,8 +73,10 @@ def main(argv=None):
         sys.exit("Did not recognize model, choose from: "
                  + " ".join(config.model_names))
     if (args.model, args.mode) not in PORTED:
+        ported = ", ".join(f"--model {m} --mode {d}"
+                           for m, d in sorted(PORTED))
         sys.exit(f"--model {args.model} --mode {args.mode} is not ported "
-                 f"yet; ported: --model darknet_r --mode predict")
+                 f"yet; ported: {ported}")
     if args.restore is None:
         sys.exit("Must give restore file last/best")
 
@@ -76,11 +86,20 @@ def main(argv=None):
     params.model = args.model
     params.compute_dtype = args.dtype
 
-    x, y = load_test_frames(data_dir, args.model, params)
-    y_hat, _ = dark_pred(x, model_dir, params, args.restore,
-                         device=args.device)
-    metric_out = {"detect_AP": detect_AP(y, y_hat, params),
-                  "detect_acc": detect_acc(y, y_hat, params)}
+    if args.model == "capsule":
+        # classifier crops are used as loaded
+        x, y = load_test_set(data_dir, args.model, params)
+        y_hat, _ = class_pred(x, model_dir, params, args.restore,
+                              device=args.device)
+        metric_out = {"recog_pr": recog_pr(y, y_hat, params),
+                      "recog_acc": recog_acc(y, y_hat, params),
+                      "recog_auc": recog_auc(y, y_hat, params)}
+    else:
+        x, y = load_test_frames(data_dir, args.model, params)
+        y_hat, _ = dark_pred(x, model_dir, params, args.restore,
+                             device=args.device)
+        metric_out = {"detect_AP": detect_AP(y, y_hat, params),
+                      "detect_acc": detect_acc(y, y_hat, params)}
     with open(model_dir + "/metric_output.txt", "w") as text_file:
         for k, v in metric_out.items():
             text_file.write("{}:{}, ".format(k, v))

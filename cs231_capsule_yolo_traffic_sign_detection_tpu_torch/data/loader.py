@@ -1,8 +1,9 @@
-"""Host data utilities (numpy): the detection subset of the JAX
-data/loader.py.
+"""Host data utilities (numpy): the synthetic sets and `center_rgb` of
+the JAX data/loader.py.
 
 `synthetic_dataset` draws from the same private ``RandomState(0)``
-stream as the JAX package, so its scenes and labels are byte-equal.
+stream as the JAX package, so its crops, scenes and labels are
+byte-equal.
 """
 
 import numpy as np
@@ -10,11 +11,20 @@ import numpy as np
 from ..ops import boxes as box_ops
 
 DETECTION_MODELS = ("darknet_d", "darknet_r")
+CLASSIFIER_MODELS = ("cnn", "capsule")
 
 
 def center_rgb(x):
     """uint8-range pixels -> centered floats in [-1, 1]."""
     return (x - 128.0) / 128
+
+
+def _synthetic_classification(templates, n, rng):
+    # one prototype per class, shared by the train and eval draws
+    n_classes = templates.shape[0]
+    y = (np.arange(n) % n_classes).astype(np.int64)
+    x = templates[y] + 0.1 * rng.randn(n, *templates.shape[1:])
+    return np.clip(x, -1.0, 1.0).astype(np.float32), y
 
 
 def _synthetic_detection(params, n, rng, size):
@@ -42,12 +52,22 @@ def _synthetic_detection(params, n, rng, size):
 
 
 def synthetic_dataset(model_name, params, n_train, n_eval):
-    """Deterministic synthetic (x_tr, y_tr, x_ev, y_ev) for a detector:
-    one synthetic sign per centered scene with its YOLO grid label."""
-    if model_name not in DETECTION_MODELS:
-        raise ValueError(f"synthetic data for {model_name!r} is not "
-                         f"ported yet: {' | '.join(DETECTION_MODELS)}")
+    """Deterministic synthetic (x_tr, y_tr, x_ev, y_ev): class-separable
+    centered crops (``capsule_input`` px, default 32) with int labels for
+    a classifier; one synthetic sign per centered scene with its YOLO
+    grid label for a detector."""
     rng = np.random.RandomState(0)
+    if model_name in CLASSIFIER_MODELS:
+        n_classes = int(params.get("n_classes", 43) or 43)
+        size = int(params.get("capsule_input", 32) or 32)
+        templates = rng.uniform(-1.0, 1.0, (n_classes, size, size, 3))
+        x_tr, y_tr = _synthetic_classification(templates, n_train, rng)
+        x_ev, y_ev = _synthetic_classification(templates, n_eval, rng)
+        return x_tr, y_tr, x_ev, y_ev
+    if model_name not in DETECTION_MODELS:
+        ported = " | ".join(CLASSIFIER_MODELS + DETECTION_MODELS)
+        raise ValueError(f"synthetic data for {model_name!r} is not ported "
+                         f"yet: {ported}")
     size = int(params.darknet_input)
     x_tr, y_tr = _synthetic_detection(params, n_train, rng, size)
     x_ev, y_ev = _synthetic_detection(params, n_eval, rng, size)

@@ -1,1 +1,2 @@
+from .capsule_net import CapsuleNet  # noqa: F401
 from .darknet import DARKNET_LAYERS, DarkNet  # noqa: F401

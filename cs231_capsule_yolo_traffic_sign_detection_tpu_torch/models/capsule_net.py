@@ -1,0 +1,91 @@
+"""CapsuleNet — capsule classifier with dynamic routing (PyTorch port).
+
+Counterpart of the JAX models/capsule_net.py: a 9x9 conv to 256
+channels (32 -> 24 px), relu, primary capsules (eight 8x8 stride-2 convs
+of 16 channels: 8-d vectors over 16 x 9 x 9 = 1296 nodes), routing to
+n_classes capsules of 16 dims, class scores = capsule lengths, and the
+reconstruction decoder.  The forward takes NHWC crops, as the JAX
+module does.
+
+The state_dict is the reference's: ``conv1.*``,
+``primary_capsules.capsules.{0..7}.*``,
+``traffic_sign_capsules.route_weights`` (1, 1296, n_classes, 8, 16) and
+``decoder.{0,4,7,10,12}.*``.  Nodes are in the reference's order,
+(channel c, position p) at c * 81 + p; the JAX package uses (p, c) and
+permutes the route weights on the way across (interop.py).
+"""
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.capsule import capsule_norm, routed_single_capsule, squash
+from ..ops.routing import routed_capsules
+from .layers import ReconDecoder
+
+
+class PrimaryCapsules(nn.Module):
+    """Conv -> capsules: (B, 256, H, W) -> squashed (B, 16*h*w, 8)."""
+
+    def __init__(self, in_channels=256, n_caps=8, out_c=16, kernel=8,
+                 stride=2):
+        super().__init__()
+        self.stride = stride
+        self.capsules = nn.ModuleList(
+            nn.Conv2d(in_channels, out_c, kernel, stride)
+            for _ in range(n_caps))
+
+    def forward(self, x, dtype=torch.float32):
+        # the eight convs as one: output channel j*16 + c is conv j's c
+        w = torch.cat([m.weight for m in self.capsules]).to(dtype)
+        b = torch.cat([m.bias for m in self.capsules]).to(dtype)
+        y = F.conv2d(x.to(dtype), w, b, stride=self.stride).float()
+        # (B, j*16 + c, p) -> (B, c*81 + p, j): vector j per node (c, p)
+        y = y.reshape(y.shape[0], len(self.capsules), -1).transpose(1, 2)
+        return squash(y.contiguous())
+
+
+class CapsuleRouting(nn.Module):
+    """Capsules -> capsules by dynamic routing: (B, N, in_c) ->
+    (B, n_caps, out_c).  A CUDA tensor takes the fused kernel K3
+    (ops/routing.py), a CPU tensor its plain version; one output capsule
+    takes the closed form."""
+
+    def __init__(self, n_caps, n_nodes, in_c, out_c, n_iter=3):
+        super().__init__()
+        self.n_iter = n_iter
+        self.route_weights = nn.Parameter(
+            0.1 * torch.randn(1, n_nodes, n_caps, in_c, out_c))
+
+    def forward(self, x, bf16=False):
+        w = self.route_weights[0]
+        if w.shape[1] == 1:
+            return routed_single_capsule(x, w)
+        return routed_capsules(x, w, self.n_iter, bf16=bf16)
+
+
+class CapsuleNet(nn.Module):
+    """``dtype`` is the conv compute dtype: bfloat16 runs the convs in
+    bf16 and K3 in its bf16 mode; squash and routing state stay f32."""
+
+    def __init__(self, n_classes=43, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = nn.Conv2d(3, 256, 9)
+        self.primary_capsules = PrimaryCapsules()
+        self.traffic_sign_capsules = CapsuleRouting(
+            n_caps=n_classes, n_nodes=16 * 9 * 9, in_c=8, out_c=16)
+        self.decoder = ReconDecoder()
+
+    def capsules(self, x):
+        """NHWC crops (B, 32, 32, 3) -> class capsules (B, n_classes, 16)."""
+        dt = self.dtype
+        x = x.permute(0, 3, 1, 2).to(dt)
+        x = F.relu(F.conv2d(x, self.conv1.weight.to(dt),
+                            self.conv1.bias.to(dt)))
+        x = self.primary_capsules(x, dt)
+        return self.traffic_sign_capsules(x, bf16=dt == torch.bfloat16)
+
+    def forward(self, x):
+        """Class scores (B, n_classes) f32: the capsules' lengths."""
+        return capsule_norm(self.capsules(x))

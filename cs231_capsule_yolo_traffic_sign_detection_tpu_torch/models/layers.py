@@ -1,4 +1,5 @@
-"""Shared building blocks (PyTorch port of the JAX models/layers.py)."""
+"""Shared building blocks (PyTorch port of the JAX models/layers.py):
+DarkNet's conv+BN+leaky block and the capsule reconstruction decoder."""
 
 import torch.nn as nn
 import torch.nn.functional as F
@@ -32,3 +33,30 @@ class ConvBNLeaky(nn.Module):
         x = getattr(self, "bn" + self.suffix)(x)
         x = F.leaky_relu(x, 0.1)
         return getattr(self, "drop" + self.suffix)(x)
+
+
+class ReconDecoder(nn.Sequential):
+    """Capsule reconstruction decoder: dense 16->256, unflatten to
+    (16, 4, 4), then 3x (nearest 2x upsample + 3x3 conv + relu) and a
+    final 3-channel tanh conv.
+
+    A ``Sequential`` so the state_dict keys are the reference's:
+    ``decoder.0`` (Linear) and ``decoder.{4,7,10,12}`` (convs).  Takes a
+    (B, 16) capsule and returns (B, 32, 32, 3) NHWC in f32, as the JAX
+    decoder does.  Serving never calls it; it is there so a capsule
+    checkpoint loads strictly.
+    """
+
+    def __init__(self):
+        super().__init__(
+            nn.Linear(16, 16 * 4 * 4), nn.ReLU(), nn.Unflatten(1, (16, 4, 4)),
+            nn.Upsample(scale_factor=2), nn.Conv2d(16, 4, 3, padding=1),
+            nn.ReLU(),
+            nn.Upsample(scale_factor=2), nn.Conv2d(4, 8, 3, padding=1),
+            nn.ReLU(),
+            nn.Upsample(scale_factor=2), nn.Conv2d(8, 16, 3, padding=1),
+            nn.ReLU(),
+            nn.Conv2d(16, 3, 3, padding=1), nn.Tanh())
+
+    def forward(self, t):
+        return super().forward(t.float()).permute(0, 2, 3, 1)

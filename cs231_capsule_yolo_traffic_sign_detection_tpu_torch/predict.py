@@ -1,17 +1,20 @@
-"""Detector inference (counterpart of the JAX predict.py:dark_pred).
+"""Inference (counterpart of the JAX predict.py: dark_pred, class_pred).
 
-Restore the reference-format checkpoint, fold BN, resize on the device,
-run the serving forward (ops/input_stage.darknet_serving_apply: the
-input-stage and pool+leaky kernels on a card) batch by batch, decode
-the full grid on the device and flatten the boxes in grid-scan order.
-Box drawing is not ported.
+`dark_pred`: restore the reference-format checkpoint, fold BN, resize
+on the device, run the serving forward (ops/input_stage.
+darknet_serving_apply: the input-stage and pool+leaky kernels on a
+card) batch by batch, decode the full grid on the device and flatten
+the boxes in grid-scan order.  Box drawing is not ported.
+
+`class_pred`: restore CapsuleNet and score crops batch by batch (the
+fused routing kernel on a card).
 """
 
 import numpy as np
 import torch
 
 from .device import compute_dtype, resolve_device
-from .models import DarkNet
+from .models import CapsuleNet, DarkNet
 from .ops import decode as decode_ops
 from .ops.input_stage import darknet_serving_apply, prepare_serving
 from .ops.preprocess import preprocess_images
@@ -61,3 +64,37 @@ def dark_pred(images, model_dir, params, restore_file, device="cuda",
         boxes = decode_ops.to_flat_host(
             decoded, image_hw=image_hw, img_size=size, with_classes=nc != 0)
     return y_hat.cpu().numpy(), boxes
+
+
+def restore_capsule(params, model_dir, restore_file):
+    """CapsuleNet with weights from ``<model_dir>/<restore_file>.ckpt``
+    (strict load), on the CPU, computing in ``params.compute_dtype``."""
+    path = ckpt.checkpoint_path(model_dir, restore_file)
+    print("Restoring parameters from {}".format(path))
+    raw = ckpt.load_checkpoint(path)
+    model = CapsuleNet(
+        n_classes=int(params.n_classes),
+        dtype=compute_dtype(params.get("compute_dtype", "float32")))
+    model.load_state_dict(raw["state_dict"], strict=True)
+    return model.eval()
+
+
+def class_pred(x, model_dir, params, restore_file, device="cuda"):
+    """Classifier inference: scores (N, n_classes) f32 and argmax classes.
+
+    x: centered crops (N, 32, 32, 3), run in batches of
+    ``params.batch_size``.  Zero crops give empty arrays without a
+    restore.
+    """
+    x = np.asarray(x, np.float32)
+    if x.shape[0] == 0:  # zero crops from an upstream empty detection
+        y_hat = np.zeros((0, params.n_classes), np.float32)
+        return y_hat, np.zeros((0,), np.int64)
+    dev = resolve_device(device)
+    model = restore_capsule(params, model_dir, restore_file).to(dev)
+    bs = int(params.batch_size)
+    with torch.inference_mode():
+        y_hat = torch.cat([model(torch.from_numpy(x[i:i + bs]).to(dev))
+                           for i in range(0, x.shape[0], bs)])
+    y_hat = y_hat.cpu().numpy()
+    return y_hat, np.argmax(y_hat, axis=1)

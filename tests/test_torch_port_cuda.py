@@ -1,5 +1,6 @@
 """PyTorch port on the card: the CUDA kernels against their plain
-versions, and dark_pred on the card against dark_pred on the CPU.
+versions, and dark_pred and class_pred on the card against the same
+calls on the CPU.
 
 Every test here needs a CUDA card and skips without one.  This file
 imports nothing of JAX, so it also runs on a machine without it:
@@ -15,9 +16,10 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import predict
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import loader
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
     resolve_device)
-from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import DarkNet
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
+    CapsuleNet, DarkNet)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
-    input_stage as ist, pool)
+    input_stage as ist, pool, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.params import Params
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
     checkpoint as ckpt)
@@ -75,3 +77,37 @@ def test_dark_pred_on_card_matches_cpu(card, tmp_path):
     y_cpu, _ = predict.dark_pred(frames, str(tmp_path), params, "last",
                                  device="cpu")
     np.testing.assert_allclose(y_card, y_cpu, atol=5e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", [(64, 1296, 43), (3, 150, 5)])
+def test_routing_kernel_matches_plain(card, bf16, shape):
+    b, n, k = shape
+    x = torch.randn((b, n, 8), generator=card, device="cuda")
+    w = 0.1 * torch.randn((n, k, 8, 16), generator=card, device="cuda")
+    before = routing.routed_capsules.launches
+    got = routing.routed_capsules(x, w, 3, bf16=bf16)
+    torch.cuda.synchronize()
+    assert routing.routed_capsules.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, k, 16)
+    # the bands of tests/test_pallas_routing.py; the kernel sums in
+    # another order
+    tol = dict(rtol=0.05, atol=5e-3) if bf16 else dict(rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(
+        got, routing.routed_capsules_plain(x, w, 3, bf16=bf16), **tol)
+
+
+def test_class_pred_on_card_matches_cpu(card, tmp_path):
+    params = Params(model="capsule", n_classes=43, batch_size=8)
+    torch.manual_seed(0)
+    ckpt.save_checkpoint({"epoch": 0, "optim_dict": {}, "state_dict":
+                          CapsuleNet(43).state_dict()}, False, str(tmp_path))
+    _, _, x, _ = loader.synthetic_dataset("capsule", params, 0, 20)
+    routing.routed_capsules.launches = 0
+    y_card, c_card = predict.class_pred(x, str(tmp_path), params, "last",
+                                        device="cuda")
+    assert routing.routed_capsules.launches == 3  # one per batch of 8
+    y_cpu, _ = predict.class_pred(x, str(tmp_path), params, "last",
+                                  device="cpu")
+    np.testing.assert_allclose(y_card, y_cpu, rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(c_card, np.argmax(y_card, axis=1))

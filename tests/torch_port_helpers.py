@@ -1,20 +1,21 @@
 """Shared inputs for the PyTorch-port parity tests (tests/test_torch_port_*).
 
-Weights are made once on the JAX side (flax init plus randomised BN
-statistics so the BN fold is not trivial) and cross to the port as
-numpy arrays through the port's own interop.
+Weights are made once on the JAX side (flax init, plus randomised BN
+statistics for DarkNet so the BN fold is not trivial) and cross to the
+port as numpy arrays through the port's own interop.
 """
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import torch
 
 from cs231_capsule_yolo_traffic_sign_detection_tpu.models import (
-    DarkNet as JaxDarkNet)
+    CapsuleNet as JaxCapsuleNet, DarkNet as JaxDarkNet)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.interop import (
     jax_variables_to_state_dict)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
-    DarkNet as TorchDarkNet)
+    CapsuleNet as TorchCapsuleNet, DarkNet as TorchDarkNet)
 
 
 def jax_darknet(n_boxes, n_classes, size=64, seed=0):
@@ -33,6 +34,32 @@ def jax_darknet(n_boxes, n_classes, size=64, seed=0):
 
     variables = jax.tree_util.tree_map_with_path(perturb, dict(variables))
     return model, variables
+
+
+def jax_capsulenet(n_classes, seed=0, dtype=None):
+    """(flax CapsuleNet with XLA routing, numpy variables).
+
+    The two convs are scaled up (x3, x10) so the primary capsules are
+    near unit length and the class scores spread over ~0.05-0.3: flax's
+    torch-default init leaves them at ~2e-3, under the tests' atol.
+    """
+    model = JaxCapsuleNet(n_classes=n_classes, routing_impl="xla",
+                          dtype=dtype)
+    x = jnp.zeros((1, 32, 32, 3), jnp.float32)
+    variables = model.init(jax.random.PRNGKey(seed), x)
+    variables = jax.tree_util.tree_map(np.array, dict(variables))
+    p = variables["params"]
+    p["conv1"]["kernel"] *= 3.0
+    p["primary_capsules"]["Conv_0"]["kernel"] *= 10.0
+    return model, variables
+
+
+def torch_capsulenet(variables_np, n_classes, dtype=torch.float32):
+    """The port's eval-mode CapsuleNet loaded (strict) from JAX variables."""
+    model = TorchCapsuleNet(n_classes=n_classes, dtype=dtype)
+    model.load_state_dict(
+        jax_variables_to_state_dict(variables_np, "capsule"), strict=True)
+    return model.eval()
 
 
 def torch_darknet(variables_np, n_boxes, n_classes, model_name="darknet_r"):
