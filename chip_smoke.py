@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a card and nvcc.  Phases
-(any failure ends the run with a non-zero exit; nothing is caught):
+(any failure ends the run with a non-zero exit; nothing is caught; each
+path of phases 5, 8 and 11 runs with all four kernels' launch counts set
+to 0 just before it, and is checked on all four just after):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the kernels (csrc/*.cu -> build/kernels/) and print the time;
@@ -33,7 +35,25 @@ Run from the repository root on a machine with a card and nvcc.  Phases
 9. timings: K3 per batch beside its bound, its plain version, its time
    at one iteration (the votes pass without logits) and the count of
    CUDA kernels one call issues; capsule serving img/s at batch 64 with
-   the profile of the same calls.
+   the profile of the same calls;
+10. K4 routing backward against its plain version at CapsuleNet's shape,
+   at a ragged shape and at a saturating input, f32 and bf16 (f32 rtol
+   1e-4 / atol 1e-6, bf16 rtol .08 / atol .02 of the gradient's largest
+   value: the bands of tests/test_pallas_routing.py; the saturated case
+   scales atol by the gradient's largest value), and the autograd op
+   (K3 + K4) against torch.autograd through the plain forward;
+11. the capsule training slice at full width through
+   `train_and_evaluate`, as the CLI calls it: batch 64, 512/128
+   synthetic crops, 2 epochs, f32 then bf16.  K4 must launch once per
+   train batch and K3 once per train and eval batch, the train loss must
+   fall, and `class_pred` must read the written last.ckpt back (finite
+   scores).  Then, on one batch: every parameter's gradient after a step
+   is finite and non-zero, and one step's gradients match the same step
+   with the plain routing (the bands of phase 10, atol scaled by each
+   gradient's largest value);
+12. timings: K4 per call beside its bound and its plain version, and the
+   CUDA kernels one call issues; the train step's ms per batch of 64 and
+   img/s, f32 and bf16, with the profile of the same calls.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -50,7 +70,7 @@ import torch.nn.functional as F
 
 # the port sits beside this script; alone, the script stops here
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import (
-    Params, predict)
+    Params, losses, predict)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import loader
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
     resolve_device)
@@ -61,7 +81,7 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
     _build, capsule as caps, decode, input_stage as ist, pool, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
-    checkpoint as ckpt)
+    checkpoint as ckpt, driver, steps)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -77,8 +97,16 @@ POOL_SHAPES = [(BATCH, 224, 224, 64), (BATCH, 112, 112, 128),
 CAPS_BATCH, CAPS_CROPS = 64, 512
 # K3's bands: those of tests/test_pallas_routing.py
 K3_TOL = {False: dict(rtol=2e-5, atol=2e-6), True: dict(rtol=0.05, atol=5e-3)}
-# kernel-name substrings for the serving profile's groups, first match wins
-GROUPS = (("routing", ("routing_pass_kernel", "routing_squash_kernel")),
+# K4's bands: f32 rtol/atol, bf16 rtol and atol as a share of the
+# gradient's largest value (tests/test_pallas_routing.py:46-106)
+K4_TOL = {False: dict(rtol=1e-4, atol=1e-6), True: dict(rtol=0.08, atol=0.02)}
+# the training slice: 2 epochs over the JAX fallback's 512/128 crops
+TRAIN_EPOCHS, TRAIN_CROPS, EVAL_CROPS = 2, 512, 128
+# kernel-name substrings for the profiles' groups, first match wins
+GROUPS = (("routing_bwd (K4)", ("routing_bwd_sweep", "bwd_prep_kernel",
+                                "bwd_finish_kernel")),
+          ("routing", ("routing_pass_kernel", "routing_squash_kernel")),
+          ("Adam", ("adam", "multi_tensor_apply")),
           ("input_stage", ("input_stage_kernel",)),
           ("pool_leaky", ("pool_leaky_kernel",)),
           ("leaky_relu", ("leaky_relu",)),
@@ -91,6 +119,23 @@ GROUPS = (("routing", ("routing_pass_kernel", "routing_squash_kernel")),
 def require(cond, msg):
     if not cond:
         raise RuntimeError("chip_smoke: " + msg)
+
+
+def kernel_wrappers():
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    return {"pool_leaky": pool.maxpool2_leaky,
+            "input_stage": ist.input_stage,
+            "routing": routing.routed_capsules,
+            "routing_bwd": routing.routed_capsules_backward}
+
+
+def reset_launches():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -239,20 +284,19 @@ def run_slice(frames, y_true, model_dir, params):
 
     for dtype in ("float32", "bfloat16"):
         params.compute_dtype = dtype
-        pool.maxpool2_leaky.launches = 0
-        ist.input_stage.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         y_hat, boxes = predict.dark_pred(list(frames), model_dir, params,
                                          "last", device="cuda")
         wall = time.perf_counter() - t0
-        launches = {"input_stage": ist.input_stage.launches,
-                    "pool_leaky": pool.maxpool2_leaky.launches}
+        launches = read_launches()
         n_batches = -(-len(frames) // BATCH)
         print(f"[slice] {dtype}: dark_pred over {len(frames)} scenes in "
               f"{wall:.3f} s (host clock, restore and fold included); "
               f"launches {launches} for {n_batches} batches")
         require(launches == {"input_stage": n_batches,
-                             "pool_leaky": 4 * n_batches},
+                             "pool_leaky": 4 * n_batches, "routing": 0,
+                             "routing_bwd": 0},
                 f"{dtype}: kernel launches {launches}")
         require(y_hat.shape == ref_np.shape and np.isfinite(y_hat).all(),
                 f"{dtype}: y_hat shape/finite")
@@ -364,11 +408,14 @@ def profile_ms(fn, wall_ms, iters=5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    # kernels only: an operator's entry also carries its kernels' time
+    # kernels only: an operator's entry also carries its kernels' time,
+    # and a record_function range on the device timeline (the
+    # optimizer's "Optimizer.step#Adam.step") spans kernels counted apart
     kernels = [(e.key, e.self_device_time_total / 1e3 / iters, e.count)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not e.key.startswith("Optimizer.")]
     total = sum(t for _, t, _ in kernels)
     print(f"[profile]   kernel time {total:.4f} ms/iter; device busy "
           f"{total / wall_ms:.3f}")
@@ -444,8 +491,7 @@ def seeded_capsulenet(seed=0):
     """Full-width CapsuleNet (43 classes) with torch-default init from
     ``seed``; the two convs are scaled (x3, x10) so the primary capsules
     are near unit length and the class scores spread out."""
-    torch.manual_seed(seed)
-    model = CapsuleNet(n_classes=43)
+    model = CapsuleNet(n_classes=43, seed=seed)
     with torch.no_grad():
         model.conv1.weight.mul_(3.0)
         for m in model.primary_capsules.capsules:
@@ -484,20 +530,17 @@ def run_capsule_slice(crops, y_true, model_dir, params):
     for dtype in ("float32", "bfloat16"):
         ref_np = refs[dtype]
         params.compute_dtype = dtype
-        routing.routed_capsules.launches = 0
-        pool.maxpool2_leaky.launches = ist.input_stage.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         y_hat, classes = predict.class_pred(crops, model_dir, params, "last",
                                             device="cuda")
         wall = time.perf_counter() - t0
-        launches = {"routing": routing.routed_capsules.launches,
-                    "pool_leaky": pool.maxpool2_leaky.launches,
-                    "input_stage": ist.input_stage.launches}
+        launches = read_launches()
         print(f"[capsule] {dtype}: class_pred over {len(crops)} crops in "
               f"{wall:.3f} s (host clock, restore included); launches "
               f"{launches} for {n_batches} batches")
-        require(launches == {"routing": n_batches, "pool_leaky": 0,
-                             "input_stage": 0},
+        require(launches == {"routing": n_batches, "routing_bwd": 0,
+                             "pool_leaky": 0, "input_stage": 0},
                 f"{dtype}: kernel launches {launches}")
         require(y_hat.shape == ref_np.shape and np.isfinite(y_hat).all(),
                 f"{dtype}: scores shape/finite")
@@ -600,6 +643,229 @@ def time_capsule_serving(model, crops):
     model.dtype = torch.float32
 
 
+def grad_close(name, got, want, bf16, scaled=False):
+    """K4_TOL for one gradient; ``scaled`` multiplies the f32 atol by the
+    gradient's largest value (f32 sums of large terms in another order).
+    Returns the max abs error."""
+    big = want.abs().max().item()
+    tol = K4_TOL[bf16]
+    atol = tol["atol"] * (big if bf16 else (max(1.0, big) if scaled else 1))
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, rtol=tol["rtol"], atol=atol,
+                               msg=lambda m: f"{name}: {m}")
+    return err
+
+
+def check_routing_bwd():
+    """Phase 10: K4 against its plain version; returns the f32 max abs
+    error (dx and dW) at CapsuleNet's shape."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    worst = None
+    for (b, n, k), scale in (((CAPS_BATCH, 1296, 43), 1.0),
+                             ((3, 150, 5), 1.0),      # partial tiles, groups
+                             ((CAPS_BATCH, 1296, 43), 10.0)):  # saturates
+        x = scale * torch.randn((b, n, 8), generator=g, device="cuda")
+        w = 0.1 * torch.randn((n, k, 8, 16), generator=g, device="cuda")
+        cot = torch.randn((b, k, 16), generator=g, device="cuda")
+        for bf16 in (False, True):
+            io = torch.bfloat16 if bf16 else torch.float32
+            _, s = routing.routing_states_plain(x, w, 3, bf16)
+            dx, dw = routing.routed_capsules_backward(x.to(io), w.to(io), s,
+                                                      cot, 3, bf16)
+            torch.cuda.synchronize()
+            want = routing.routed_capsules_backward_plain(x, w, s, cot, 3,
+                                                          bf16)
+            errs = [grad_close(f"K4 {name}", got, ref, bf16, scale > 1)
+                    for name, got, ref in zip(("dx", "dW"), (dx, dw), want)]
+            print(f"[K4] routing_bwd x {(b, n, 8)} scale {scale} w "
+                  f"{(n, k, 8, 16)} {'bf16' if bf16 else 'f32'}: dx "
+                  f"max_abs_err {errs[0]} (|dx| max "
+                  f"{want[0].abs().max().item()}), dW max_abs_err {errs[1]} "
+                  f"(|dW| max {want[1].abs().max().item()})")
+            if worst is None:
+                worst = max(errs)
+    # the autograd op (K3 forward saving s_t, K4 backward) against
+    # torch.autograd through the plain forward
+    x = torch.randn((16, 1296, 8), generator=g, device="cuda")
+    w = 0.1 * torch.randn((1296, 43, 8, 16), generator=g, device="cuda")
+    cot = torch.randn((16, 43, 16), generator=g, device="cuda")
+    grads = []
+    for fn in (routing.routed_capsules, routing.routed_capsules_plain):
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        (fn(xa, wa, 3) * cot).sum().backward()
+        grads.append((xa.grad, wa.grad))
+    errs = [grad_close(f"autograd {name}", a, b, False)
+            for name, a, b in zip(("dx", "dW"), *grads)]
+    print(f"[K4] autograd op vs torch.autograd through the plain forward "
+          f"(B 16, f32): dx max_abs_err {errs[0]}, dW max_abs_err {errs[1]}")
+    return worst
+
+
+def plain_loss(model, x, y, cfg):
+    """CapsuleNet's training loss with the plain routing, in the model's
+    dtype (the same convs, casts and decoder as CapsuleNet.forward)."""
+    dt = model.dtype
+    h = F.relu(F.conv2d(x.permute(0, 3, 1, 2).to(dt),
+                        model.conv1.weight.to(dt), model.conv1.bias.to(dt)))
+    u = model.primary_capsules(h, dt)
+    caps_out = routing.routed_capsules_plain(
+        u, model.traffic_sign_capsules.route_weights[0], 3,
+        bf16=dt == torch.bfloat16)
+    t = caps_out[torch.arange(caps_out.shape[0], device=x.device), y]
+    loss, _ = losses.capsule_loss(caps.capsule_norm(caps_out), y, cfg, x,
+                                  model.decoder(t, dt))
+    return loss
+
+
+def check_train_step(params, crops, labels):
+    """Phase 11, on one batch of 64: every gradient finite and non-zero
+    after a step; one step's gradients against the plain routing's."""
+    cfg = losses.LossConfig.from_params(params)
+    x = torch.from_numpy(crops[:CAPS_BATCH]).cuda()
+    y = torch.from_numpy(labels[:CAPS_BATCH]).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        model = seeded_capsulenet().cuda().train()
+        model.dtype = dtype
+        grads = []
+        for use_kernel in (True, False):
+            model.zero_grad(set_to_none=True)
+            loss = (steps.loss_and_scores(model, x, y, cfg)[0] if use_kernel
+                    else plain_loss(model, x, y, cfg))
+            loss.backward()
+            grads.append({n: p.grad.clone()
+                          for n, p in model.named_parameters()})
+        worst = {}
+        for name, got in grads[0].items():
+            require(torch.isfinite(got).all() and got.abs().max() > 0,
+                    f"{dtype}: gradient of {name} not finite or all zero")
+            worst[name] = grad_close(f"step {name}", got, grads[1][name],
+                                     bf16, scaled=True)
+        print(f"[train] {str(dtype)[6:]} one step on a batch of "
+              f"{CAPS_BATCH}: every gradient finite and non-zero; against "
+              f"the plain routing max_abs_err per parameter "
+              f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }")
+        opt = steps.make_optimizer(model)
+        loss, _ = steps.train_step(model, opt, x, y, 1e-3, cfg)
+        require(torch.isfinite(loss).item(), f"{dtype}: step loss")
+        require(all(torch.isfinite(p).all() for p in model.parameters()),
+                f"{dtype}: parameters not finite after an Adam step")
+
+
+def run_train_slice(params, model_root):
+    """Phase 11: train_and_evaluate at batch 64, f32 then bf16; returns
+    the f32 run's launch counts."""
+    n_train = -(-TRAIN_CROPS // CAPS_BATCH)
+    n_eval = -(-EVAL_CROPS // CAPS_BATCH)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        params.compute_dtype = dtype
+        model_dir = os.path.join(model_root, dtype)
+        os.makedirs(model_dir, exist_ok=True)
+        np.random.seed(0)
+        reset_launches()
+        t0 = time.perf_counter()
+        driver.train_and_evaluate(params, os.path.join(model_root, "nodata"),
+                                  model_dir, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        losses_tr = np.load(os.path.join(model_dir, "losses_tr.npy"))
+        print(f"[train] {dtype}: train_and_evaluate, {TRAIN_EPOCHS} epochs "
+              f"of {n_train} train + {n_eval} eval batches of {CAPS_BATCH}, "
+              f"in {wall:.3f} s (host clock, init, data and checkpoints "
+              f"included); launches {launches}; train losses {losses_tr}")
+        require(launches == {"routing": (n_train + n_eval) * TRAIN_EPOCHS,
+                             "routing_bwd": n_train * TRAIN_EPOCHS,
+                             "pool_leaky": 0, "input_stage": 0},
+                f"{dtype}: kernel launches {launches}")
+        require(np.isfinite(losses_tr).all() and losses_tr[-1] < losses_tr[0],
+                f"{dtype}: the train loss did not fall: {losses_tr}")
+        _, _, crops, _ = loader.synthetic_dataset("capsule", params, 0, 64)
+        y_hat, _ = predict.class_pred(crops, model_dir, params, "last",
+                                      device="cuda")
+        require(y_hat.shape == (64, 43) and np.isfinite(y_hat).all(),
+                f"{dtype}: scores from the trained last.ckpt")
+        print(f"[train] {dtype}: class_pred restored last.ckpt from "
+              f"{model_dir}{params.train_frac}: scores finite, "
+              f"{y_hat.shape}")
+        out[dtype] = launches
+    return out["float32"]
+
+
+def routing_bwd_bound(b, n, k, bf16, n_iter=3):
+    """K4's least time: the votes, dx and dW, 2*B*N*K*8*16 each (tensor
+    cores in bf16), plus 5 * n_iter - 4 node-sized passes of 2*B*N*K*16
+    in f32 on the CUDA cores (the logits rebuilt from the saved state,
+    then per iteration the node-sum VJP and, but for the first, the
+    probabilities' VJP, vbar and the agreement VJP); bytes are x and W
+    in their type, s_saved and g read, dx and dW (f32) written."""
+    s = 2 if bf16 else 4
+    n_bytes = (s * (b * n * 8 + n * k * 8 * 16)
+               + 4 * (n_iter + 1) * b * k * 16
+               + 4 * (b * n * 8 + n * k * 8 * 16))
+    products = 3 * 2 * b * n * k * 8 * 16
+    passes = (5 * n_iter - 4) * 2 * b * n * k * 16
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (products / FLOP_PER_S[torch.bfloat16 if bf16 else torch.float32]
+             + passes / FLOP_PER_S[torch.float32]) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes, products, passes)
+
+
+def time_routing_bwd(w_model):
+    """K4 at CapsuleNet's shape with the slice's route weights, per
+    dtype: kernel, plain version, bound, kernels per call."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((CAPS_BATCH, 1296, 8), generator=g, device="cuda")
+    cot = torch.randn((CAPS_BATCH, 43, 16), generator=g, device="cuda")
+    out = {}
+    for bf16 in (False, True):
+        io = torch.bfloat16 if bf16 else torch.float32
+        xi, wi = x.to(io), w_model.to(io)
+        _, s = routing.routing_states_plain(x, w_model, 3, bf16)
+        t = {"ms": time_ms(lambda: routing.routed_capsules_backward(
+                 xi, wi, s, cot, 3, bf16)),
+             "plain_ms": time_ms(
+                 lambda: routing.routed_capsules_backward_plain(
+                     x, w_model, s, cot, 3, bf16), iters=5)}
+        t["bound_ms"], t["bound_by"], nb, products, passes = \
+            routing_bwd_bound(CAPS_BATCH, 1296, 43, bf16)
+        t["kernels"] = count_kernels(lambda: routing.routed_capsules_backward(
+            xi, wi, s, cot, 3, bf16))
+        print(f"[time] routing_bwd x {tuple(x.shape)} w "
+              f"{tuple(w_model.shape)} {'bf16' if bf16 else 'f32'}: kernel "
+              f"{t['ms']:.4f} ms ({t['kernels']} CUDA kernels per call), "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {nb} bytes, "
+              f"votes+dx+dW {products} + routing {passes} FLOP), plain "
+              f"(routed_capsules_backward_plain) {t['plain_ms']:.4f} ms")
+        out[bf16] = t
+    return out
+
+
+def time_train_step(params, crops, labels):
+    """The train step at batch 64 on device-resident crops: CUDA-event
+    time per step, then the profile of the same calls."""
+    cfg = losses.LossConfig.from_params(params)
+    x = torch.from_numpy(crops[:CAPS_BATCH]).cuda()
+    y = torch.from_numpy(labels[:CAPS_BATCH]).cuda()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = CapsuleNet(43, dtype=dtype, seed=0).cuda().train()
+        opt = steps.make_optimizer(model)
+
+        def step():
+            return steps.train_step(model, opt, x, y, 1e-3, cfg)
+
+        ms = time_ms(step, iters=10)
+        print(f"[time] capsule train step (forward with recon, loss, "
+              f"backward, Adam) batch {CAPS_BATCH} {str(dtype)[6:]}: "
+              f"{ms:.3f} ms = {CAPS_BATCH / ms * 1e3:.1f} img/s")
+        profile_ms(step, ms)
+        out[dtype] = ms
+    return out
+
+
 def main():
     # phase 1
     require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -665,6 +931,27 @@ def main():
     k3 = time_routing(cmodel.traffic_sign_capsules.route_weights[0].detach())
     time_capsule_serving(cmodel, crops)
 
+    # phase 10
+    k4_err = check_routing_bwd()
+
+    # phase 11
+    tparams = Params(os.path.join(HERE, "experiments", "capsule",
+                                  "params.json"), model="capsule",
+                     n_epochs=TRAIN_EPOCHS, lr_runtime=1e-3, recon=True,
+                     recon_coef=5e-4, eval_every=1, train_frac=1,
+                     summary=False)
+    require(tparams.batch_size == CAPS_BATCH, "capsule config")
+    tcrops, tlabels, _, _ = loader.synthetic_dataset(
+        "capsule", tparams, TRAIN_CROPS, EVAL_CROPS)
+    check_train_step(tparams, tcrops, tlabels)
+    train_launches = run_train_slice(
+        tparams, os.path.join(HERE, "build", "chip_smoke", "capsule_train"))
+
+    # phase 12
+    k4 = time_routing_bwd(
+        cmodel.traffic_sign_capsules.route_weights[0].detach())
+    time_train_step(tparams, tcrops, tlabels)
+
     pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu_torch"
     jax_pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu"
     print(json.dumps({"kernels": [
@@ -690,6 +977,14 @@ def main():
          "ms": k3[False]["ms"], "plain_ms": k3[False]["plain_ms"],
          "bound_ms": k3[False]["bound_ms"],
          "bound_by": k3[False]["bound_by"], "library_ms": None},
+        # no one PyTorch call computes the routing VJP: no library_ms
+        {"name": "routing_bwd", "route": "cuda",
+         "source": f"{pkg}/csrc/routing_bwd.cu",
+         "replaces": f"{jax_pkg}/ops/routing_pallas.py:447",
+         "launches": train_launches["routing_bwd"], "max_abs_err": k4_err,
+         "ms": k4[False]["ms"], "plain_ms": k4[False]["plain_ms"],
+         "bound_ms": k4[False]["bound_ms"],
+         "bound_by": k4[False]["bound_by"], "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,15 +1,28 @@
-"""CLI of the PyTorch port (darknet_r and capsule predict so far).
+"""CLI of the PyTorch port: darknet_r and capsule predict, capsule train
+and overfit.
 
     python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
         --model darknet_r|capsule --mode predict --restore last \\
         [--dtype float32|bfloat16] [--device cuda|cpu] [--model_dir DIR]
+    python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
+        --model capsule --mode train|overfit [--dtype float32|bfloat16] \\
+        [--seed N] [--lr LR] [--recon] [--recon_coef C] [--eval_every N] \\
+        [--train_frac F] [--no_metric] [--restore last|best] \\
+        [--device cuda|cpu] [--model_dir DIR]
 
-Reads ``<model_dir>/params.json`` and ``<model_dir>/<restore>.ckpt``
-(the reference's torch format), predicts over the test set (GTSDB
-frames for the detector, GTSRB crops for the classifier) or, when it is
-absent, the synthetic test set, and writes
-``<model_dir>/metric_output.txt`` as the JAX CLI does.  Any other model
-or mode exits with a "not ported yet" message.
+Reads ``<model_dir>/params.json``.  predict reads
+``<model_dir>/<restore>.ckpt`` (the reference's torch format; else the
+same file under ``<model_dir><train_frac>``, where training writes),
+predicts over the test set (GTSDB frames for the detector, GTSRB crops
+for the classifier) or, when it is absent, the synthetic test set, and
+writes ``<model_dir>/metric_output.txt`` as the JAX CLI does.  train and
+overfit train from ``--seed`` (or resume from ``--restore``) on the
+stored set, the first 3 samples of it for overfit, or the synthetic set
+when it is absent, and write ``last.ckpt``/``best.ckpt`` into
+``<model_dir><train_frac>``.  The reference's quirks are kept: the
+optimizer LR comes from ``--lr`` only, and ``--recon`` turns the
+reconstruction loss OFF.  Any other model or mode exits with a "not
+ported yet" message.
 """
 
 import argparse
@@ -25,20 +38,36 @@ from .metrics.classification import recog_acc, recog_auc, recog_pr
 from .metrics.detection import detect_AP, detect_acc
 from .params import Params
 from .predict import class_pred, dark_pred
+from .train.driver import train_and_evaluate
+from .train.logging_utils import ScalarWriter
 
-PORTED = {("darknet_r", "predict"), ("capsule", "predict")}
+PORTED = {("darknet_r", "predict"), ("capsule", "predict"),
+          ("capsule", "train"), ("capsule", "overfit")}
 
 parser = argparse.ArgumentParser(
     prog="python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch")
 parser.add_argument("--model", default="darknet_r",
                     help=" | ".join(config.model_names))
 parser.add_argument("--mode", default="predict", help="train | predict | "
-                    "overfit (only predict is ported)")
+                    "overfit (train and overfit for capsule only)")
 parser.add_argument("--restore", default=None, help="last | best")
 parser.add_argument("--model_dir", default=None, help="model dir")
 parser.add_argument("--dtype", default="float32",
-                    help="serving dtype: float32 | bfloat16")
+                    help="compute dtype: float32 | bfloat16 (training keeps "
+                    "f32 master params and Adam moments)")
 parser.add_argument("--device", default="cuda", help="cuda | cpu")
+parser.add_argument("--seed", type=int, default=0, help="random seed")
+parser.add_argument("--lr", type=float, default=1e-3, help="learning rate")
+parser.add_argument("--train_frac", type=float, default=1,
+                    help="fraction of train data")
+parser.add_argument("--recon", action="store_false",
+                    help="if use reconstruction loss")
+parser.add_argument("--recon_coef", default=5e-4,
+                    help="reconstruction coefficient")
+parser.add_argument("--eval_every", default=1, type=int,
+                    help="evaluate metric every # epochs")
+parser.add_argument("--no_metric", action="store_true",
+                    help="do not compute metric")
 
 
 def load_test_set(data_dir, model_name, params):
@@ -77,7 +106,7 @@ def main(argv=None):
                            for m, d in sorted(PORTED))
         sys.exit(f"--model {args.model} --mode {args.mode} is not ported "
                  f"yet; ported: {ported}")
-    if args.restore is None:
+    if args.mode == "predict" and args.restore is None:
         sys.exit("Must give restore file last/best")
 
     data_dir = config.data_dir[args.model]
@@ -85,6 +114,11 @@ def main(argv=None):
     params = Params(os.path.join(model_dir, "params.json"))
     params.model = args.model
     params.compute_dtype = args.dtype
+    params.train_frac = args.train_frac
+    np.random.seed(args.seed)
+    if args.mode in ("train", "overfit"):
+        train(args, params, data_dir, model_dir)
+        return
 
     if args.model == "capsule":
         # classifier crops are used as loaded
@@ -104,6 +138,27 @@ def main(argv=None):
         for k, v in metric_out.items():
             text_file.write("{}:{}, ".format(k, v))
             print("{}:{}, ".format(k, v))
+
+
+def train(args, params, data_dir, model_dir):
+    """--mode train | overfit, with the JAX CLI's params (main.py:131-163)
+    and data (main.py:215-235)."""
+    params.seed = args.seed
+    params.recon = args.recon
+    params.recon_coef = float(args.recon_coef)
+    params.eval_every = args.eval_every
+    params.lr_runtime = args.lr
+    is_small = args.mode == "overfit"
+    if is_small:
+        try:
+            loader.make_small_data(data_dir, 3)
+        except (FileNotFoundError, OSError):
+            print("[overfit] dataset absent; synthetic small set will be "
+                  "used")
+    train_and_evaluate(params, data_dir, model_dir, is_small=is_small,
+                       restore_file=args.restore, writer=ScalarWriter(),
+                       no_metric=args.no_metric, seed=args.seed,
+                       device=args.device)
 
 
 if __name__ == "__main__":

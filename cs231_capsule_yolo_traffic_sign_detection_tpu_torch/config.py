@@ -9,6 +9,12 @@ model_names = ["cnn", "capsule", "darknet_d", "darknet_r", "darkcapsule"]
 GTSRB = "data/GTSRB"
 GTSDB = "data/GTSDB"
 
+# data file names (reference config.py:9-15)
+tr_d = "/train.p"
+ev_d = "/eval.p"
+tr_sm_d = "/train_small.p"
+ev_sm_d = "/eval_small.p"
+
 data_dir = {
     "cnn": GTSRB,
     "capsule": GTSRB,
@@ -24,3 +30,7 @@ model_dir = {
     "darknet_r": "experiments/darknet_r",
     "darkcapsule": "experiments/darkcapsule",
 }
+
+# maximum number of samples used for the train/eval metric
+# (reference config.py:53)
+max_metric_samples = 1000

@@ -38,6 +38,8 @@
 //     squashes: v = s * (|s|^2 / (1 + |s|^2) / sqrt(|s|^2 + 1e-12)),
 //     as the TPU kernel computes it, with IEEE sqrt and division (no
 //     fast math).  It adds v to V, or writes the caps on the last pass.
+//     For training it also writes s_t, the state the backward (K4,
+//     csrc/routing_bwd.cu) rebuilds the iterations from.
 // The first pass skips the logits: they are zero, so every probability
 // is 1/K.  bf16: x and W are read as bf16 and every sum runs in f32.
 
@@ -210,9 +212,11 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // mode: 0 first pass (V = v), 1 middle pass (V += v), 2 last (caps = v)
+// s_out: this iteration's (B, K, D) slice of s_saved, or null (serving)
 __global__ void routing_squash_kernel(const float* __restrict__ partial,
                                       float* __restrict__ vsum,
-                                      float* __restrict__ out, int K,
+                                      float* __restrict__ out,
+                                      float* __restrict__ s_out, int K,
                                       int tiles, int mode) {
   const int b = blockIdx.x;
   const int KD = K * kD;
@@ -233,6 +237,7 @@ __global__ void routing_squash_kernel(const float* __restrict__ partial,
     const float v = s * (sq / (1.f + sq) / sqrtf(sq + 1e-12f));
     if (!valid) continue;
     const int64_t o = int64_t(b) * KD + j;
+    if (s_out != nullptr) s_out[o] = s;
     if (mode == 2)
       out[o] = v;
     else if (mode == 0)
@@ -282,8 +287,8 @@ int pick_tile(int B, int N, int K) {
 
 template <typename T>
 int run(const void* x, const void* w, float* partial, float* vsum,
-        float* out, int B, int N, int K, int n_iter, int tile_nodes,
-        cudaStream_t s) {
+        float* out, float* s_saved, int B, int N, int K, int n_iter,
+        int tile_nodes, cudaStream_t s) {
   const int tiles = (N + tile_nodes - 1) / tile_nodes;
   const dim3 grid(tiles, (B + kBG - 1) / kBG);
   const int threads = pass_threads(K);
@@ -296,7 +301,9 @@ int run(const void* x, const void* w, float* partial, float* vsum,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     routing_squash_kernel<<<B, sq_threads, 0, s>>>(
-        partial, vsum, out, K, tiles, t == n_iter - 1 ? 2 : (t == 0 ? 0 : 1));
+        partial, vsum, out,
+        s_saved == nullptr ? nullptr : s_saved + int64_t(t) * B * K * kD, K,
+        tiles, t == n_iter - 1 ? 2 : (t == 0 ? 0 : 1));
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -318,13 +325,15 @@ extern "C" int cyt_routing_tile(int64_t B, int64_t N, int64_t K,
 
 // x: (B, N, C) and w: (N, K, C, D) contiguous in dtype (C = 8, D = 16,
 // K <= 48); partial: (B, ceil(N / tile_nodes), K, D) f32 scratch; vsum:
-// (B, K, D) f32 scratch; out: (B, K, D) f32.  Launches 2 * n_iter
-// kernels on `stream`.  Returns the first cudaGetLastError() that is not
-// 0, or 0.
+// (B, K, D) f32 scratch; out: (B, K, D) f32; s_saved: null, or
+// (n_iter, B, K, D) f32 that receives each iteration's node sums s_t.
+// Launches 2 * n_iter kernels on `stream`.  Returns the first
+// cudaGetLastError() that is not 0, or 0.
 extern "C" int cyt_routing(const void* x, const void* w, void* partial,
-                           void* vsum, void* out, int64_t B, int64_t N,
-                           int64_t K, int64_t C, int64_t D, int n_iter,
-                           int tile_nodes, int dtype, void* stream) {
+                           void* vsum, void* out, void* s_saved, int64_t B,
+                           int64_t N, int64_t K, int64_t C, int64_t D,
+                           int n_iter, int tile_nodes, int dtype,
+                           void* stream) {
   if (B <= 0 || N <= 0 || K <= 0 || K > kMaxK || C != kC || D != kD ||
       n_iter < 1 || tile_nodes < 1 || tile_nodes > kTileMax ||
       B * N * C >= (int64_t(1) << 31) || N * K * C * D >= (int64_t(1) << 31) ||
@@ -336,9 +345,11 @@ extern "C" int cyt_routing(const void* x, const void* w, void* partial,
   float* p = static_cast<float*>(partial);
   float* v = static_cast<float*>(vsum);
   float* o = static_cast<float*>(out);
+  float* ss = static_cast<float*>(s_saved);
   if (dtype == cyt::kFloat32)
-    return run<float>(x, w, p, v, o, b, n, k, n_iter, tile_nodes, s);
+    return run<float>(x, w, p, v, o, ss, b, n, k, n_iter, tile_nodes, s);
   if (dtype == cyt::kBFloat16)
-    return run<__nv_bfloat16>(x, w, p, v, o, b, n, k, n_iter, tile_nodes, s);
+    return run<__nv_bfloat16>(x, w, p, v, o, ss, b, n, k, n_iter, tile_nodes,
+                              s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

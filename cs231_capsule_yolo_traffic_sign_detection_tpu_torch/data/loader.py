@@ -1,17 +1,67 @@
-"""Host data utilities (numpy): the synthetic sets and `center_rgb` of
-the JAX data/loader.py.
+"""Host data utilities (numpy), from the JAX data/loader.py: the stored
+sets (`load_data`, `make_small_data`), `shuffle`, `center_rgb`, the
+synthetic sets and `load_or_synthesize`.
 
 `synthetic_dataset` draws from the same private ``RandomState(0)``
 stream as the JAX package, so its crops, scenes and labels are
-byte-equal.
+byte-equal; `load_or_synthesize` falls back to it with the same sizes.
 """
+
+import pickle
 
 import numpy as np
 
+from .. import config
 from ..ops import boxes as box_ops
 
 DETECTION_MODELS = ("darknet_d", "darknet_r")
 CLASSIFIER_MODELS = ("cnn", "capsule")
+# synthetic fallback sizes (train, eval): classification sets are cheap
+# (32x32); detection scenes at 448^2 are ~2.4 MB each; 3/3 for overfit
+_SYNTH_FULL = {"classification": (512, 128), "detection": (64, 16)}
+_SYNTH_SMALL = (3, 3)
+
+
+def _strip_pickle_suffix(path):
+    return path[:-2] if path.endswith(".p") else path
+
+
+def load_data(data_dir, is_small=False, npy=False):
+    """Load (x_tr, y_tr, x_ev, y_ev) from the build artifacts: pickles,
+    or ``*_X.npy``/``*_Y.npy`` with ``npy``; small sets are pickles."""
+    if is_small:
+        train_path = data_dir + config.tr_sm_d
+        eval_path = data_dir + config.ev_sm_d
+        npy = False
+    else:
+        train_path = data_dir + config.tr_d
+        eval_path = data_dir + config.ev_d
+    if not npy:
+        with open(train_path, "rb") as f:
+            x_tr, y_tr = pickle.load(f)
+        with open(eval_path, "rb") as f:
+            x_ev, y_ev = pickle.load(f)
+        return x_tr, y_tr, x_ev, y_ev
+    train_stem = _strip_pickle_suffix(train_path)
+    eval_stem = _strip_pickle_suffix(eval_path)
+    return (np.load(train_stem + "_X.npy"), np.load(train_stem + "_Y.npy"),
+            np.load(eval_stem + "_X.npy"), np.load(eval_stem + "_Y.npy"))
+
+
+def make_small_data(data_dir, n=128, npy=False):
+    """Write the first n train/eval samples as *_small.p pickles (the
+    overfit mode's set)."""
+    x_tr, y_tr, x_ev, y_ev = load_data(data_dir, npy=npy)
+    with open(data_dir + config.tr_sm_d, "wb") as f:
+        pickle.dump((x_tr[:n], y_tr[:n]), f)
+    with open(data_dir + config.ev_sm_d, "wb") as f:
+        pickle.dump((x_ev[:n], y_ev[:n]), f)
+
+
+def shuffle(x, y):
+    """Joint random permutation from the global np.random stream."""
+    i = np.random.permutation(len(y))
+    return x[i], y[i]
 
 
 def center_rgb(x):
@@ -72,3 +122,20 @@ def synthetic_dataset(model_name, params, n_train, n_eval):
     x_tr, y_tr = _synthetic_detection(params, n_train, rng, size)
     x_ev, y_ev = _synthetic_detection(params, n_eval, rng, size)
     return x_tr, y_tr, x_ev, y_ev
+
+
+def load_or_synthesize(data_dir, params, is_small=False, npy=False):
+    """`load_data`, or the deterministic synthetic set sized for the mode
+    (3/3 for overfit) when the artifacts are absent."""
+    try:
+        return load_data(data_dir, is_small=is_small, npy=npy)
+    except (FileNotFoundError, OSError):
+        pass
+    model = params.get("model", "cnn")
+    kind = ("classification" if model in CLASSIFIER_MODELS
+            else "detection")
+    n_train, n_eval = _SYNTH_SMALL if is_small else _SYNTH_FULL[kind]
+    print("[data] artifacts missing under {!r}; using deterministic "
+          "synthetic data ({} train / {} eval)".format(
+              data_dir, n_train, n_eval))
+    return synthetic_dataset(model, params, n_train, n_eval)

@@ -4,8 +4,9 @@ Counterpart of the JAX models/capsule_net.py: a 9x9 conv to 256
 channels (32 -> 24 px), relu, primary capsules (eight 8x8 stride-2 convs
 of 16 channels: 8-d vectors over 16 x 9 x 9 = 1296 nodes), routing to
 n_classes capsules of 16 dims, class scores = capsule lengths, and the
-reconstruction decoder.  The forward takes NHWC crops, as the JAX
-module does.
+reconstruction decoder, fed the true class's capsule in training.  The
+forward takes NHWC crops, as the JAX module does.  Initial weights come
+from ``seed`` alone (models/init.py).
 
 The state_dict is the reference's: ``conv1.*``,
 ``primary_capsules.capsules.{0..7}.*``,
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from ..ops.capsule import capsule_norm, routed_single_capsule, squash
 from ..ops.routing import routed_capsules
+from .init import init_capsulenet
 from .layers import ReconDecoder
 
 
@@ -47,15 +49,16 @@ class PrimaryCapsules(nn.Module):
 
 class CapsuleRouting(nn.Module):
     """Capsules -> capsules by dynamic routing: (B, N, in_c) ->
-    (B, n_caps, out_c).  A CUDA tensor takes the fused kernel K3
-    (ops/routing.py), a CPU tensor its plain version; one output capsule
-    takes the closed form."""
+    (B, n_caps, out_c).  A CUDA tensor takes the fused kernels K3 and,
+    in training, K4 (ops/routing.py), a CPU tensor their plain versions;
+    one output capsule takes the closed form.  The route weights start
+    at zero: CapsuleNet draws them from its seed (models/init.py)."""
 
     def __init__(self, n_caps, n_nodes, in_c, out_c, n_iter=3):
         super().__init__()
         self.n_iter = n_iter
         self.route_weights = nn.Parameter(
-            0.1 * torch.randn(1, n_nodes, n_caps, in_c, out_c))
+            torch.zeros(1, n_nodes, n_caps, in_c, out_c))
 
     def forward(self, x, bf16=False):
         w = self.route_weights[0]
@@ -65,10 +68,12 @@ class CapsuleRouting(nn.Module):
 
 
 class CapsuleNet(nn.Module):
-    """``dtype`` is the conv compute dtype: bfloat16 runs the convs in
-    bf16 and K3 in its bf16 mode; squash and routing state stay f32."""
+    """``dtype`` is the compute dtype of the convs and the decoder:
+    bfloat16 runs them in bf16 and K3/K4 in their bf16 mode; squash and
+    routing state stay f32, and the parameters stay f32 (the master
+    copy) whatever the dtype."""
 
-    def __init__(self, n_classes=43, dtype=torch.float32):
+    def __init__(self, n_classes=43, dtype=torch.float32, seed=0):
         super().__init__()
         self.dtype = dtype
         self.conv1 = nn.Conv2d(3, 256, 9)
@@ -76,6 +81,7 @@ class CapsuleNet(nn.Module):
         self.traffic_sign_capsules = CapsuleRouting(
             n_caps=n_classes, n_nodes=16 * 9 * 9, in_c=8, out_c=16)
         self.decoder = ReconDecoder()
+        init_capsulenet(self, seed)
 
     def capsules(self, x):
         """NHWC crops (B, 32, 32, 3) -> class capsules (B, n_classes, 16)."""
@@ -86,6 +92,13 @@ class CapsuleNet(nn.Module):
         x = self.primary_capsules(x, dt)
         return self.traffic_sign_capsules(x, bf16=dt == torch.bfloat16)
 
-    def forward(self, x):
-        """Class scores (B, n_classes) f32: the capsules' lengths."""
-        return capsule_norm(self.capsules(x))
+    def forward(self, x, y=None, recon=False):
+        """Class scores (B, n_classes) f32: the capsules' lengths; with
+        ``recon``, also the crops (B, 32, 32, 3) f32 decoded from the
+        capsule of each crop's true class ``y`` (B,)."""
+        caps = self.capsules(x)
+        scores = capsule_norm(caps)
+        if not recon:
+            return scores
+        t = caps[torch.arange(caps.shape[0], device=caps.device), y]
+        return scores, self.decoder(t, self.dtype)

@@ -1,0 +1,45 @@
+"""Parameter initialisation from an explicit seed (counterpart of the
+JAX models/init.py).
+
+The reference relies on torch's default inits: U(-1/sqrt(fan_in),
++1/sqrt(fan_in)) for conv and linear weights and biases (kaiming-uniform
+with a = sqrt(5)), and 0.1 * N(0, 1) for the capsule route weights
+(reference models.py:57-58).  `init_capsulenet` draws all of them from
+one ``torch.Generator`` seeded from ``seed``, so a model's initial
+weights depend on ``--seed`` and on nothing else.  The JAX package's
+draws (jax.random) differ from torch's; the tests carry weights across
+instead of comparing inits.
+"""
+
+import math
+
+import torch
+import torch.nn as nn
+
+
+def torch_default_(module, generator):
+    """Re-draw a conv's or linear layer's weight and bias in place."""
+    fan_in = module.weight[0].numel()
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        module.weight.uniform_(-bound, bound, generator=generator)
+        if module.bias is not None:
+            module.bias.uniform_(-bound, bound, generator=generator)
+
+
+def route_weights_(param, generator):
+    """0.1 * N(0, 1), in place."""
+    with torch.no_grad():
+        param.normal_(0.0, 1.0, generator=generator).mul_(0.1)
+
+
+def init_capsulenet(model, seed=0):
+    """Every parameter of a CapsuleNet from ``torch.Generator(seed)``, in
+    registration order."""
+    g = torch.Generator().manual_seed(int(seed))
+    for name, module in model.named_modules():
+        if isinstance(module, (nn.Conv2d, nn.Linear)):
+            torch_default_(module, g)
+        elif name.endswith("traffic_sign_capsules"):
+            route_weights_(module.route_weights, g)
+    return model

@@ -1,6 +1,7 @@
 """Shared building blocks (PyTorch port of the JAX models/layers.py):
 DarkNet's conv+BN+leaky block and the capsule reconstruction decoder."""
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -43,8 +44,9 @@ class ReconDecoder(nn.Sequential):
     A ``Sequential`` so the state_dict keys are the reference's:
     ``decoder.0`` (Linear) and ``decoder.{4,7,10,12}`` (convs).  Takes a
     (B, 16) capsule and returns (B, 32, 32, 3) NHWC in f32, as the JAX
-    decoder does.  Serving never calls it; it is there so a capsule
-    checkpoint loads strictly.
+    decoder does: the layers run in ``dtype`` (the f32 parameters cast
+    to it, as the convs of CapsuleNet do), the tanh in f32.  Training
+    feeds it the true class's capsule; serving never calls it.
     """
 
     def __init__(self):
@@ -58,5 +60,14 @@ class ReconDecoder(nn.Sequential):
             nn.ReLU(),
             nn.Conv2d(16, 3, 3, padding=1), nn.Tanh())
 
-    def forward(self, t):
-        return super().forward(t.float()).permute(0, 2, 3, 1)
+    def forward(self, t, dtype=torch.float32):
+        x = t.to(dtype)
+        for m in list(self)[:-1]:
+            if isinstance(m, nn.Linear):
+                x = F.linear(x, m.weight.to(dtype), m.bias.to(dtype))
+            elif isinstance(m, nn.Conv2d):
+                x = F.conv2d(x, m.weight.to(dtype), m.bias.to(dtype),
+                             padding=m.padding)
+            else:
+                x = m(x)
+        return torch.tanh(x.float()).permute(0, 2, 3, 1)

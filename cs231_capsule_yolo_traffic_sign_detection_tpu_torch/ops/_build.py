@@ -21,7 +21,8 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
-SOURCES = ("pool_leaky.cu", "input_stage.cu", "routing.cu")
+SOURCES = ("pool_leaky.cu", "input_stage.cu", "routing.cu",
+           "routing_bwd.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -100,11 +101,18 @@ def library():
     lib.cyt_pool_leaky.restype = i32
     lib.cyt_input_stage.argtypes = [p, p, p, p, i64, i64, i64, f32, i32, p]
     lib.cyt_input_stage.restype = i32
-    lib.cyt_routing.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64, i32,
-                                i32, i32, p]
+    lib.cyt_routing.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, i64,
+                                i32, i32, i32, p]
     lib.cyt_routing.restype = i32
     lib.cyt_routing_tile.argtypes = [i64, i64, i64, i32]
     lib.cyt_routing_tile.restype = i32
+    lib.cyt_routing_bwd.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64,
+                                    i64, i64, i32, i32, i32, i32, p]
+    lib.cyt_routing_bwd.restype = i32
+    pi32 = ctypes.POINTER(i32)
+    lib.cyt_routing_bwd_tiles.argtypes = [i64, i64, i64, i32, i32, pi32,
+                                          pi32]
+    lib.cyt_routing_bwd_tiles.restype = i32
     return lib
 
 

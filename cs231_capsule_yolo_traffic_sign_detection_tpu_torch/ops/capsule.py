@@ -40,13 +40,23 @@ def dynamic_routing(priors, n_iter=3):
     logits are kept as (B, N, K, 1): the JAX package broadcasts them over
     D, where every column holds the same values.
     """
+    return routing_iterations(priors, n_iter)[0]
+
+
+def routing_iterations(priors, n_iter=3):
+    """`dynamic_routing` that also returns the node sums s_t of every
+    iteration, (n_iter, B, K, D): the state the routing backward (K4)
+    rebuilds the iterations from."""
     logits = priors.new_zeros(priors.shape[:3] + (1,))
+    s_all = []
     for it in range(n_iter):
         probs = torch.softmax(logits, dim=2)
-        outputs = squash((probs * priors).sum(dim=1, keepdim=True))
+        s = (probs * priors).sum(dim=1, keepdim=True)
+        s_all.append(s[:, 0])
+        outputs = squash(s)
         if it < n_iter - 1:
             logits = logits + (priors * outputs).sum(dim=-1, keepdim=True)
-    return outputs
+    return outputs, torch.stack(s_all)
 
 
 def routed_single_capsule(x, route_weights):

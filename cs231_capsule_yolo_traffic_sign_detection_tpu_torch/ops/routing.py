@@ -1,74 +1,150 @@
-"""K3: capsule votes fused with routing by agreement.
+"""K3 and K4: capsule votes fused with routing by agreement, and its VJP.
 
 Counterpart of the JAX ops/routing_pallas.py:routed_capsules_pallas
-(forward).  The CUDA kernel is csrc/routing.cu; `routed_capsules_plain`
-is the plain PyTorch version of the same function (ops/capsule.py's
-compute_priors + dynamic_routing).  `routed_capsules` launches the
-kernel for a CUDA tensor and takes the plain version only for a CPU
-tensor.
+(forward, K3, csrc/routing.cu) and its custom VJP `_bwd` (backward, K4,
+csrc/routing_bwd.cu).  `routed_capsules_plain` and
+`routed_capsules_backward_plain` are the plain PyTorch versions of the
+two directions.  `routed_capsules` is one differentiable op: a call
+that needs no gradient (serving, under ``torch.inference_mode()`` or
+``torch.no_grad()``) runs the forward alone and saves nothing; a call
+that does goes through `RoutedCapsules`, whose forward keeps the
+per-iteration node sums s_t and whose backward is K4.  Each wrapper
+launches its kernel for a CUDA tensor and takes the plain version only
+for a CPU tensor.
 
-bf16 mode follows the JAX kernel's: x and W are stored in bf16, the
-votes and every sum accumulate in f32, softmax, logits and squash stay
-f32, and the caps come out f32.  (The TPU kernel also rounds the priors
-and the routing probabilities to bf16 between its matrix-unit passes;
-the port keeps both f32, inside the bf16 band of the JAX tests.)
+bf16 mode follows the JAX kernels': x and W are stored in bf16, the
+votes and every sum accumulate in f32, softmax, logits, squash and all
+gradient state stay f32, the caps and dW come out f32 and dx in x's
+dtype.  (The TPU kernels also round the priors and the routing
+probabilities to bf16 between their matrix-unit passes; the port keeps
+both f32, inside the bf16 bands of the JAX tests.)
 """
 
+import ctypes
 import functools
 
 import torch
 
 from . import _build
-from .capsule import compute_priors, dynamic_routing
+from .capsule import (SQUASH_EPS, compute_priors, dynamic_routing,
+                      routing_iterations, squash)
 
-# what csrc/routing.cu takes: in_C and D fixed, K up to MAX_CAPS
-IN_C, OUT_D, MAX_CAPS = 8, 16, 48
+# what csrc/routing*.cu take: in_C and D fixed, K up to MAX_CAPS, and
+# (backward) n_iter up to MAX_ITER_BWD
+IN_C, OUT_D, MAX_CAPS, MAX_ITER_BWD = 8, 16, 48, 5
+
+
+def _operands(x, w, bf16):
+    """x and W as the kernels read them, in f32 arithmetic (f64 kept)."""
+    dt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    x, w = x.to(dt), w.to(dt)
+    if bf16:  # bf16 storage of the operands, f32 arithmetic
+        x, w = x.bfloat16().to(dt), w.bfloat16().to(dt)
+    return x, w
 
 
 def routed_capsules_plain(x, w, n_iter=3, bf16=False):
     """x (B, N, in_C), w (N, K, in_C, D) -> caps (B, K, D) f32."""
-    x, w = x.float(), w.float()
-    if bf16:  # bf16 storage of the operands, f32 arithmetic
-        x, w = x.bfloat16().float(), w.bfloat16().float()
+    x, w = _operands(x, w, bf16)
     return dynamic_routing(compute_priors(x, w), n_iter=n_iter)[:, 0]
 
 
-def routed_capsules(x, w, n_iter=3, bf16=False):
-    """Votes x @ W and ``n_iter`` routing iterations, one op.
+def routing_states_plain(x, w, n_iter=3, bf16=False):
+    """`routed_capsules_plain` that also returns the node sums s_t of
+    every iteration, (n_iter, B, K, D): the state K4 reads."""
+    x, w = _operands(x, w, bf16)
+    caps, s_all = routing_iterations(compute_priors(x, w), n_iter)
+    return caps[:, 0], s_all
 
-    x: (B, N, 8) and w: (N, K, 8, 16), contiguous, f32 or bf16 (cast to
-    bf16 when ``bf16``, to f32 otherwise); K <= 48.  Returns caps
-    (B, K, 16) f32.  No (B, N, K, D) votes tensor is made.  The count of
-    calls that launched the kernel is ``routed_capsules.launches`` (one
-    per call; the call issues 2 * n_iter CUDA kernels).
+
+def _squash_parts(s):
+    """Squash scale sc(n2) and its derivative d sc / d n2, n2 = |s|^2,
+    in the closed form of the JAX kernel (routing_pallas.py:345-352)."""
+    n2 = (s * s).sum(dim=-1, keepdim=True)
+    u = 1.0 / (1.0 + n2)
+    r = 1.0 / torch.sqrt(n2 + SQUASH_EPS)
+    return n2 * u * r, u * r - n2 * u * u * r - 0.5 * n2 * u * r ** 3
+
+
+def _squash_vjp(s, vbar):
+    """d(squash)/ds applied to vbar: sc vbar + 2 s scp <s, vbar>."""
+    sc, scp = _squash_parts(s)
+    return sc * vbar + 2.0 * s * scp * (s * vbar).sum(dim=-1, keepdim=True)
+
+
+def routed_capsules_backward_plain(x, w, s_saved, g, n_iter=3, bf16=False):
+    """The VJP of `routed_capsules_plain`: (dx, dW) for the caps'
+    cotangent ``g`` (B, K, D), given the forward's node sums ``s_saved``
+    (n_iter, B, K, D).
+
+    The reverse sweep of the JAX kernel (_routing_bwd_kernel): the
+    squash VJP in closed form, the node-sum VJP (into the probabilities
+    and the votes), the softmax VJP over the capsules, the agreement VJP
+    (into the votes and the previous output), then the votes-product VJP
+    into dx and dW.  The logits of iteration t are the votes dotted with
+    v_0 + ... + v_{t-1}.  Plain: it forms the (B, N, K, D) votes.
+    Returns dx and dW in f32 (f64 for f64 operands).
     """
-    if x.device.type == "cpu":
-        return routed_capsules_plain(x, w, n_iter, bf16)
+    xf, wf = _operands(x, w, bf16)
+    s_saved, g = s_saved.to(xf.dtype), g.to(xf.dtype)
+    priors = compute_priors(xf, wf)                       # (B, N, K, D)
+    k = priors.shape[2]
+    v = [squash(s_saved[t]) for t in range(n_iter - 1)]   # (B, K, D)
+
+    def probs(t):
+        if t == 0:
+            return priors.new_full(priors.shape[:3], 1.0 / k)
+        vsum = sum(v[:t])
+        return torch.softmax((priors * vsum[:, None]).sum(-1), dim=2)
+
+    d_priors = torch.zeros_like(priors)
+    lbar = torch.zeros_like(priors[..., 0])                # (B, N, K)
+    vbar = g
+    for t in range(n_iter - 1, -1, -1):
+        sbar = _squash_vjp(s_saved[t], vbar)
+        p = probs(t)
+        d_priors = d_priors + p[..., None] * sbar[:, None]
+        if t == 0:
+            break
+        pbar = (priors * sbar[:, None]).sum(-1)           # (B, N, K)
+        lbar = lbar + p * (pbar - (p * pbar).sum(dim=2, keepdim=True))
+        vbar = (priors * lbar[..., None]).sum(dim=1)      # (B, K, D)
+        d_priors = d_priors + v[t - 1][:, None] * lbar[..., None]
+    dx = torch.einsum("bnkd,nkcd->bnc", d_priors, wf)
+    dw = torch.einsum("bnkd,bnc->nkcd", d_priors, xf)
+    return dx, dw
+
+
+def _check(name, x, w, n_iter):
     if x.device.type != "cuda":
-        raise ValueError(f"routed_capsules: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dim() != 3 or w.dim() != 4 or x.shape[1] != w.shape[0] \
             or x.shape[2] != w.shape[2]:
-        raise ValueError(f"routed_capsules: need x (B, N, C) and w (N, K, "
-                         f"C, D), got {tuple(x.shape)}, {tuple(w.shape)}")
+        raise ValueError(f"{name}: need x (B, N, C) and w (N, K, C, D), got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    c, k, d = x.shape[2], w.shape[1], w.shape[3]
+    if (c, d) != (IN_C, OUT_D) or not 1 <= k <= MAX_CAPS:
+        raise ValueError(f"{name}: the kernel takes in_C {IN_C}, D {OUT_D} "
+                         f"and 1 <= K <= {MAX_CAPS}, got in_C {c}, D {d}, "
+                         f"K {k}")
+    if n_iter < 1:
+        raise ValueError(f"{name}: n_iter must be >= 1, got {n_iter}")
+    for arg, t in (("x", x), ("w", w)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name}: {arg} must be f32 or bf16, got "
+                            f"{t.dtype}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous on "
+                             f"{x.device}")
+
+
+def _k3(x, w, n_iter, bf16, s_saved=None):
+    """Launch K3 on x and w (already in the kernel's storage type);
+    writes s_t into ``s_saved`` (n_iter, B, K, D) f32 when given."""
     b, n, c = x.shape
     k, d = w.shape[1], w.shape[3]
-    if (c, d) != (IN_C, OUT_D) or not 1 <= k <= MAX_CAPS:
-        raise ValueError(f"routed_capsules: the kernel takes in_C {IN_C}, "
-                         f"D {OUT_D} and 1 <= K <= {MAX_CAPS}, got in_C {c}, "
-                         f"D {d}, K {k}")
-    if n_iter < 1:
-        raise ValueError(f"routed_capsules: n_iter must be >= 1, got {n_iter}")
-    for name, t in (("x", x), ("w", w)):
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"routed_capsules: {name} must be f32 or bf16, "
-                            f"got {t.dtype}")
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"routed_capsules: {name} must be contiguous on "
-                             f"{x.device}")
-    io = torch.bfloat16 if bf16 else torch.float32
-    x, w = x.to(io), w.to(io)
     with torch.cuda.device(x.device):
-        tile = _tile_nodes(b, n, k, _build.DTYPE_CODES[io],
+        tile = _tile_nodes(b, n, k, _build.DTYPE_CODES[x.dtype],
                            torch.cuda.current_device())
         # per (element, node tile) node sums: 11.4 MB at CapsuleNet's shape
         partial = torch.empty((b, -(-n // tile), k, d), dtype=torch.float32,
@@ -77,23 +153,138 @@ def routed_capsules(x, w, n_iter=3, bf16=False):
         out = torch.empty((b, k, d), dtype=torch.float32, device=x.device)
         err = _build.library().cyt_routing(
             x.data_ptr(), w.data_ptr(), partial.data_ptr(), vsum.data_ptr(),
-            out.data_ptr(), b, n, k, c, d, int(n_iter), tile,
-            _build.DTYPE_CODES[io],
+            out.data_ptr(), None if s_saved is None else s_saved.data_ptr(),
+            b, n, k, c, d, int(n_iter), tile, _build.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "routing")
     routed_capsules.launches += 1
     return out
 
 
+class RoutedCapsules(torch.autograd.Function):
+    """K3 forward (saving the node sums s_t, 528 KB at B=64) and K4
+    backward as one differentiable op; plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, w, n_iter, bf16):
+        if x.device.type == "cpu":
+            out, s_saved = routing_states_plain(x, w, n_iter, bf16)
+            xs, ws = x, w
+        else:
+            _check("routed_capsules", x, w, n_iter)
+            io = torch.bfloat16 if bf16 else torch.float32
+            xs, ws = x.to(io), w.to(io)
+            s_saved = torch.empty((n_iter,) + (x.shape[0], w.shape[1],
+                                               w.shape[3]),
+                                  dtype=torch.float32, device=x.device)
+            out = _k3(xs, ws, n_iter, bf16, s_saved)
+        ctx.save_for_backward(xs, ws, s_saved)
+        ctx.n_iter, ctx.bf16 = n_iter, bf16
+        ctx.dtypes = (x.dtype, w.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, ws, s_saved = ctx.saved_tensors
+        dx, dw = routed_capsules_backward(xs, ws, s_saved, g.contiguous(),
+                                          ctx.n_iter, ctx.bf16)
+        return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None, None
+
+
+def routed_capsules(x, w, n_iter=3, bf16=False):
+    """Votes x @ W and ``n_iter`` routing iterations, one op.
+
+    x: (B, N, 8) and w: (N, K, 8, 16), contiguous, f32 or bf16 (cast to
+    bf16 when ``bf16``, to f32 otherwise); K <= 48.  Returns caps
+    (B, K, 16) f32.  No (B, N, K, D) votes tensor is made on a card.
+    Differentiable in x and w (K4 on a card).  The count of calls that
+    launched the forward kernel is ``routed_capsules.launches`` (one
+    per call; the call issues 2 * n_iter CUDA kernels).
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"routed_capsules: unsupported device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return RoutedCapsules.apply(x, w, n_iter, bf16)
+    if x.device.type == "cpu":
+        return routed_capsules_plain(x, w, n_iter, bf16)
+    _check("routed_capsules", x, w, n_iter)
+    io = torch.bfloat16 if bf16 else torch.float32
+    return _k3(x.to(io), w.to(io), n_iter, bf16)
+
+
 routed_capsules.launches = 0
+
+
+def routed_capsules_backward(x, w, s_saved, g, n_iter=3, bf16=False):
+    """K4: (dx, dW) of `routed_capsules` for the caps' cotangent ``g``
+    (B, K, D), given the forward's node sums ``s_saved`` (n_iter, B, K,
+    D) f32.  x and w as the forward read them.  Returns dx (B, N, 8) and
+    dW (N, K, 8, 16) in f32 (`RoutedCapsules` casts them to its inputs'
+    dtypes).  The count of calls that
+    launched the kernel is ``routed_capsules_backward.launches`` (one
+    per call; the call issues 2 * n_iter CUDA kernels)."""
+    if x.device.type == "cpu":
+        return routed_capsules_backward_plain(x, w, s_saved, g, n_iter, bf16)
+    _check("routed_capsules_backward", x, w, n_iter)
+    b, n, c = x.shape
+    k, d = w.shape[1], w.shape[3]
+    if n_iter > MAX_ITER_BWD:
+        raise ValueError(f"routed_capsules_backward: the kernel takes n_iter "
+                         f"<= {MAX_ITER_BWD}, got {n_iter}")
+    for arg, t, shape in (("s_saved", s_saved, (n_iter, b, k, d)),
+                          ("g", g, (b, k, d))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"routed_capsules_backward: {arg} must be f32 "
+                             f"{shape} contiguous on {x.device}")
+    io = torch.bfloat16 if bf16 else torch.float32
+    xi, wi = x.to(io), w.to(io)
+    with torch.cuda.device(x.device):
+        pass_tile, grad_tile = _bwd_tiles(b, n, k, int(n_iter),
+                                          _build.DTYPE_CODES[io],
+                                          torch.cuda.current_device())
+        f32 = dict(dtype=torch.float32, device=x.device)
+        # per element: sbar_t, the running sums V_t and v_t (3 n_iter - 2
+        # vectors of K x D); per (element, node tile) partial sums
+        state = torch.empty((b, 3 * n_iter - 2, k, d), **f32)
+        partial = torch.empty((b, -(-n // pass_tile), k, d), **f32)
+        dx = torch.empty((b, n, c), **f32)
+        dw = torch.empty((n, k, c, d), **f32)
+        err = _build.library().cyt_routing_bwd(
+            xi.data_ptr(), wi.data_ptr(), s_saved.data_ptr(), g.data_ptr(),
+            state.data_ptr(), partial.data_ptr(), dx.data_ptr(),
+            dw.data_ptr(), b, n, k, c, d, int(n_iter), pass_tile, grad_tile,
+            _build.DTYPE_CODES[io],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "routing_bwd")
+    routed_capsules_backward.launches += 1
+    return dx, dw
+
+
+routed_capsules_backward.launches = 0
 
 
 @functools.lru_cache(maxsize=64)
 def _tile_nodes(b, n, k, dtype_code, device_index):
-    """Nodes per block for the kernel's node tiles on the current device
+    """Nodes per block for K3's node tiles on the current device
     (csrc/routing.cu:pick_tile), cached per shape, type and device."""
     tile = _build.library().cyt_routing_tile(b, n, k, dtype_code)
     if tile <= 0:
         raise RuntimeError("routed_capsules: no node tile for "
                            f"B {b}, N {n}, K {k} on this device")
     return tile
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_tiles(b, n, k, n_iter, dtype_code, device_index):
+    """K4's node tiles (pass launches, final launch) on the current
+    device (csrc/routing_bwd.cu:pick_tiles), cached like `_tile_nodes`."""
+    pass_tile, grad_tile = ctypes.c_int(0), ctypes.c_int(0)
+    err = _build.library().cyt_routing_bwd_tiles(
+        b, n, k, n_iter, dtype_code, ctypes.byref(pass_tile),
+        ctypes.byref(grad_tile))
+    if err != 0 or pass_tile.value <= 0 or grad_tile.value <= 0:
+        raise RuntimeError("routed_capsules_backward: no node tiles for "
+                           f"B {b}, N {n}, K {k}, n_iter {n_iter} on this "
+                           f"device (cudaError {err})")
+    return pass_tile.value, grad_tile.value

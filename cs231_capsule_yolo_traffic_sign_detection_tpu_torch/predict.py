@@ -67,11 +67,14 @@ def dark_pred(images, model_dir, params, restore_file, device="cuda",
 
 
 def restore_capsule(params, model_dir, restore_file):
-    """CapsuleNet with weights from ``<model_dir>/<restore_file>.ckpt``
-    (strict load), on the CPU, computing in ``params.compute_dtype``."""
+    """CapsuleNet with weights from ``<model_dir>/<restore_file>.ckpt``,
+    or the same file under ``model_dir + str(train_frac)`` where training
+    writes it (strict load), on the CPU, computing in
+    ``params.compute_dtype``."""
     path = ckpt.checkpoint_path(model_dir, restore_file)
     print("Restoring parameters from {}".format(path))
-    raw = ckpt.load_checkpoint(path)
+    raw = ckpt.load_checkpoint(
+        path, fallback_dirs=[model_dir + str(params.get("train_frac", 1))])
     model = CapsuleNet(
         n_classes=int(params.n_classes),
         dtype=compute_dtype(params.get("compute_dtype", "float32")))

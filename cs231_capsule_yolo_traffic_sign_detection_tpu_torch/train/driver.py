@@ -1,0 +1,214 @@
+"""Training and evaluation (counterpart of the JAX train/driver.py), for
+the capsule classifier.
+
+Per epoch, as the reference's main.py:42-217 and the JAX driver: a
+shuffle from the global ``np.random`` stream, ``np.array_split``
+batching, a train epoch, an eval epoch, the plateau LR step on the
+TRAIN loss, the scalars (train_loss / eval_loss / train_metric /
+eval_metric), last/best checkpoints into ``model_dir + str(train_frac)``,
+the ``.npy`` loss and metric histories, and the metric on at most 1000
+subsampled rows.
+
+The dataset stays resident on the device: a shuffle is one permuted
+gather per batch on the device, with the same ``np.random.permutation``
+and ``np.array_split`` use as the JAX driver's device-data path, so the
+same ``np.random.seed`` gives both frameworks the same batches.  The
+losses stay on the device until one fetch per epoch; nothing syncs the
+host per batch.  Not ported: --mesh, --stream, --scan_epoch,
+--async_ckpt, --ckpt_every, --fine_tune.
+"""
+
+import os
+
+import numpy as np
+import torch
+
+from .. import config
+from ..data import loader as data_loader
+from ..device import compute_dtype, resolve_device
+from ..losses import LossConfig
+from ..metrics.classification import recog_acc
+from ..models import CapsuleNet
+from . import checkpoint as ckpt
+from .plateau import ReduceLROnPlateau
+from .steps import eval_step, make_optimizer, train_step
+from .summary import summarize
+
+TRAINED_MODELS = ("capsule",)
+
+
+def _bounds(n, n_batch):
+    """(lo, hi) of each of np.array_split's n_batch parts of range(n)."""
+    ends = np.cumsum([len(p) for p in np.array_split(np.arange(n),
+                                                     n_batch)])
+    return list(zip(np.concatenate([[0], ends[:-1]]).tolist(), ends.tolist()))
+
+
+class Trainer:
+    """Owns the model, the optimizer and the device-resident data of one
+    experiment."""
+
+    def __init__(self, params, seed=0, device="cuda", verbose=True):
+        if params.model not in TRAINED_MODELS:
+            raise ValueError(f"training --model {params.model} is not ported "
+                             f"yet: {' | '.join(TRAINED_MODELS)}")
+        self.device = resolve_device(device)
+        self.params = params
+        self.loss_cfg = LossConfig.from_params(params)
+        self.model_name = params.model
+        self.model = CapsuleNet(
+            n_classes=int(params.n_classes),
+            dtype=compute_dtype(params.get("compute_dtype", "float32")),
+            seed=seed).to(self.device)
+        if verbose:
+            summarize(self.model, title=self.model_name)
+        self.opt = make_optimizer(self.model)
+        self._data = {}
+
+    def _resident(self, tag, x, y):
+        """(x f32, y int64) of a split on the device, uploaded once."""
+        key = (tag, x.shape, y.shape)
+        if key not in self._data:
+            for stale in [k for k in self._data if k[0] == tag]:
+                del self._data[stale]
+            self._data[key] = (
+                torch.from_numpy(np.asarray(x, np.float32)).to(self.device),
+                torch.from_numpy(np.asarray(y, np.int64)).to(self.device))
+        return self._data[key]
+
+    def _epoch_metric(self, losses, y_hats, y, metric_on):
+        """Mean batch loss (one fetch) and recog_acc on <= 1000 rows, with
+        the reference's np.random use (a choice only when the metric is
+        on and there are more rows)."""
+        avg_loss = float(torch.stack(losses).mean())
+        metric_score = -1
+        if metric_on:
+            y_hat = torch.cat(y_hats).float().cpu().numpy()
+            n = y.shape[0]
+            if n > config.max_metric_samples:
+                i = np.random.choice(n, config.max_metric_samples).astype(int)
+                y, y_hat = y[i], y_hat[i]
+            metric_score = recog_acc(y, y_hat, self.params)
+        return avg_loss, metric_score
+
+    def train_epoch(self, x, y, lr, metric_on=True):
+        """One training epoch over (x, y) at learning rate ``lr``;
+        returns (mean batch loss, metric or -1)."""
+        n = y.shape[0]
+        n_batch = (n + self.params.batch_size - 1) // self.params.batch_size
+        x_dev, y_dev = self._resident("train", x, y)
+        perm = np.random.permutation(n)
+        perm_dev = torch.from_numpy(perm).to(self.device)
+        self.model.train()
+        losses, y_hats = [], []
+        for lo, hi in _bounds(n, n_batch):
+            idx = perm_dev[lo:hi]
+            loss, y_hat = train_step(self.model, self.opt, x_dev[idx],
+                                     y_dev[idx], lr, self.loss_cfg)
+            losses.append(loss)
+            y_hats.append(y_hat)
+        return self._epoch_metric(losses, y_hats, np.asarray(y)[perm],
+                                  metric_on)
+
+    def eval_epoch(self, x, y, metric_on=True):
+        """One evaluation epoch; returns (mean batch loss, metric or -1)."""
+        n = y.shape[0]
+        n_batch = (n + self.params.batch_size - 1) // self.params.batch_size
+        x_dev, y_dev = self._resident("eval", x, y)
+        self.model.eval()
+        losses, y_hats = [], []
+        for lo, hi in _bounds(n, n_batch):
+            loss, y_hat = eval_step(self.model, x_dev[lo:hi], y_dev[lo:hi],
+                                    self.loss_cfg)
+            losses.append(loss)
+            y_hats.append(y_hat)
+        return self._epoch_metric(losses, y_hats, np.asarray(y), metric_on)
+
+    # -- checkpoint glue ---------------------------------------------------
+
+    def state_dict(self, epoch, plateau):
+        return {"epoch": epoch, "state_dict": self.model.state_dict(),
+                "optim_dict": self.opt.state_dict(),
+                "plateau": plateau.state_dict() if plateau else {}}
+
+    def restore(self, path, model_dir=None, train_frac=None):
+        """Weights and Adam state from ``path`` (or the same file under
+        ``model_dir + str(train_frac)``); returns the checkpoint dict."""
+        fallbacks = []
+        if model_dir is not None and train_frac is not None:
+            fallbacks.append(model_dir + str(train_frac))
+        raw = ckpt.load_checkpoint(path, fallback_dirs=fallbacks)
+        self.model.load_state_dict(raw["state_dict"], strict=True)
+        if raw.get("optim_dict"):
+            self.opt.load_state_dict(raw["optim_dict"])
+        return raw
+
+
+def train_and_evaluate(params, data_dir, model_dir, is_small=False,
+                       restore_file=None, writer=None, no_metric=False,
+                       seed=0, device="cuda"):
+    """Full training run (reference main.py:146-217); returns the best
+    eval metric."""
+    trainer = Trainer(params, seed=seed, device=device,
+                      verbose=bool(params.get("summary", True)))
+    plateau = ReduceLROnPlateau(lr=params.lr_runtime, factor=params.lr_decay)
+
+    if restore_file is not None:
+        restore_path = ckpt.checkpoint_path(model_dir, restore_file)
+        print("Restoring parameters from {}".format(restore_path))
+        raw = trainer.restore(restore_path, model_dir, params.train_frac)
+        if raw.get("plateau"):
+            plateau.load_state_dict(raw["plateau"])
+
+    x_tr, y_tr, x_ev, y_ev = data_loader.load_or_synthesize(
+        data_dir, params, is_small=is_small, npy=params.get("npy", False))
+    to_frac = int(y_tr.shape[0] * params.train_frac)
+    x_tr, y_tr = x_tr[:to_frac], y_tr[:to_frac]
+
+    losses_tr, losses_ev, metrics_tr, metrics_ev = [], [], [], []
+    best_metric_ev = float("-inf")
+    best_loss_ev = float("inf")
+    for epoch in range(params.n_epochs):
+        if_eval = (epoch + 1) % params.eval_every == 0
+        metric_on = if_eval and not no_metric
+
+        loss_tr, metric_tr = trainer.train_epoch(x_tr, y_tr, plateau.lr,
+                                                 metric_on=metric_on)
+        loss_ev, metric_ev = trainer.eval_epoch(x_ev, y_ev,
+                                                metric_on=metric_on)
+        plateau.step(loss_tr)
+
+        if writer is not None:
+            writer.add_scalar("train_loss", loss_tr, epoch)
+            writer.add_scalar("eval_loss", loss_ev, epoch)
+
+        is_best = metric_ev > best_metric_ev
+        ckpt.save_checkpoint(trainer.state_dict(epoch + 1, plateau),
+                             is_best=is_best,
+                             checkpoint_dir=model_dir + str(params.train_frac))
+        if is_best:
+            best_metric_ev = metric_ev
+        if loss_ev < best_loss_ev:
+            best_loss_ev = loss_ev
+
+        if if_eval:
+            if writer is not None:
+                writer.add_scalar("train_metric", metric_tr, epoch)
+                writer.add_scalar("eval_metric", metric_ev, epoch)
+            print("epoch {} | train loss: {:05.3f} | eval loss: {:05.3f} |"
+                  " best eval loss: {:05.3f} | train metric: {:05.3f} | "
+                  "eval metric: {:05.3f} | best eval metric {:05.3f}".format(
+                      epoch + 1, loss_tr, loss_ev, best_loss_ev, metric_tr,
+                      metric_ev, best_metric_ev))
+            metrics_tr.append(metric_tr)
+            metrics_ev.append(metric_ev)
+            np.save(os.path.join(model_dir, "metrics_tr"), metrics_tr)
+            np.save(os.path.join(model_dir, "metrics_ev"), metrics_ev)
+
+        losses_tr.append(loss_tr)
+        losses_ev.append(loss_ev)
+        np.save(os.path.join(model_dir, "losses_tr"), losses_tr)
+        np.save(os.path.join(model_dir, "losses_ev"), losses_ev)
+    if writer is not None:
+        writer.close()
+    return best_metric_ev

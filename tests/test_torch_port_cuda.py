@@ -1,6 +1,6 @@
 """PyTorch port on the card: the CUDA kernels against their plain
-versions, and dark_pred and class_pred on the card against the same
-calls on the CPU.
+versions, dark_pred and class_pred on the card against the same calls
+on the CPU, and one capsule train step on the card.
 
 Every test here needs a CUDA card and skips without one.  This file
 imports nothing of JAX, so it also runs on a machine without it:
@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import predict
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import (
+    losses, predict)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import loader
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
     resolve_device)
@@ -22,7 +23,7 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
     input_stage as ist, pool, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.params import Params
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
-    checkpoint as ckpt)
+    checkpoint as ckpt, steps)
 
 pytestmark = pytest.mark.cuda
 
@@ -111,3 +112,44 @@ def test_class_pred_on_card_matches_cpu(card, tmp_path):
                                   device="cpu")
     np.testing.assert_allclose(y_card, y_cpu, rtol=1e-4, atol=1e-6)
     np.testing.assert_array_equal(c_card, np.argmax(y_card, axis=1))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", [(8, 1296, 43), (3, 150, 5)])
+def test_routing_backward_kernel_matches_plain(card, bf16, shape):
+    b, n, k = shape
+    x = torch.randn((b, n, 8), generator=card, device="cuda")
+    w = 0.1 * torch.randn((n, k, 8, 16), generator=card, device="cuda")
+    g = torch.randn((b, k, 16), generator=card, device="cuda")
+    _, s = routing.routing_states_plain(x, w, 3, bf16)
+    before = routing.routed_capsules_backward.launches
+    io = torch.bfloat16 if bf16 else torch.float32
+    dx, dw = routing.routed_capsules_backward(x.to(io), w.to(io), s, g, 3,
+                                              bf16)
+    torch.cuda.synchronize()
+    assert routing.routed_capsules_backward.launches == before + 1
+    assert dx.dtype == dw.dtype == torch.float32
+    want = routing.routed_capsules_backward_plain(x, w, s, g, 3, bf16)
+    # the kernel sums in another order; bf16 operands are rounded alike
+    # on both sides, so the f32 band of tests/test_pallas_routing.py
+    # holds in both modes
+    for got, ref in zip((dx, dw), want):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
+
+
+def test_train_step_on_card(card):
+    params = Params(model="capsule", n_classes=43, recon=True,
+                    recon_coef=5e-4)
+    model = CapsuleNet(43, seed=0).cuda().train()
+    opt = steps.make_optimizer(model)
+    _, _, x, y = loader.synthetic_dataset("capsule", params, 0, 8)
+    routing.routed_capsules.launches = 0
+    routing.routed_capsules_backward.launches = 0
+    loss, _ = steps.train_step(model, opt, torch.from_numpy(x).cuda(),
+                               torch.from_numpy(y).cuda(), 1e-3,
+                               losses.LossConfig.from_params(params))
+    assert (routing.routed_capsules.launches,
+            routing.routed_capsules_backward.launches) == (1, 1)
+    assert torch.isfinite(loss)
+    for name, p in model.named_parameters():
+        assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0, name
