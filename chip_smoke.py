@@ -25,22 +25,29 @@ to 0 just before it, and is checked on all four just after):
    the same calls (kernel time by group, device busy share);
 7. K3 routing against its plain version at CapsuleNet's shape
    [64, 1296, 8] x [1296, 43, 8, 16] (f32 rtol 2e-5 / atol 2e-6, bf16
-   rtol .05 / atol 5e-3), at a ragged shape and at a saturating input;
+   rtol .05 / atol 5e-3), at a ragged shape and at a saturating input,
+   each call just after every SM's shared memory was filled with NaN (a
+   read of a slot the kernel never wrote then shows as a wrong result);
 8. the capsule classifier's serving slice at full width (CapsuleNet,
    43 classes, seeded weights) through `class_pred`, as the CLI calls
    it, over 512 synthetic crops in batches of 64, f32 then bf16: K3 must
    launch once per batch, the scores must match an eval forward in the
    same dtype with the plain routing on the card (K3's bands), and the
    argmax classes must agree away from ties;
-9. timings: K3 per batch beside its bound, its plain version, its time
-   at one iteration (the votes pass without logits) and the count of
-   CUDA kernels one call issues; capsule serving img/s at batch 64 with
-   the profile of the same calls;
+9. the launch plans K3 and K4 pick (node tiles, blocks, element groups,
+   cluster size, clusters resident); timings: K3 per batch beside its
+   bound, its plain version, its time at one iteration (the votes pass
+   without logits), its time with the L2 flushed before every call
+   (FLUSH_BYTES written between calls, outside the timed span), the
+   count of CUDA kernels one call issues and the device time of each
+   (torch.profiler); capsule serving img/s at batch 64 with the profile
+   of the same calls;
 10. K4 routing backward against its plain version at CapsuleNet's shape,
    at a ragged shape and at a saturating input, f32 and bf16 (f32 rtol
    1e-4 / atol 1e-6, bf16 rtol .08 / atol .02 of the gradient's largest
    value: the bands of tests/test_pallas_routing.py; the saturated case
-   scales atol by the gradient's largest value), and the autograd op
+   scales atol by the gradient's largest value; shared memory filled
+   with NaN before each call, as in phase 7), and the autograd op
    (K3 + K4) against torch.autograd through the plain forward;
 11. the capsule training slice at full width through
    `train_and_evaluate`, as the CLI calls it: batch 64, 512/128
@@ -51,9 +58,10 @@ to 0 just before it, and is checked on all four just after):
    is finite and non-zero, and one step's gradients match the same step
    with the plain routing (the bands of phase 10, atol scaled by each
    gradient's largest value);
-12. timings: K4 per call beside its bound and its plain version, and the
-   CUDA kernels one call issues; the train step's ms per batch of 64 and
-   img/s, f32 and bf16, with the profile of the same calls.
+12. timings: K4 per call beside its bound and its plain version, warm
+   and with the L2 flushed, and the device time of each CUDA kernel one
+   call issues; the train step's ms per batch of 64 and img/s, f32 and
+   bf16, with the profile of the same calls.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -88,6 +96,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # H100 SXM dense peaks: f32 outside the tensor cores; bf16 on them
 FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 BATCH = 32
+FLUSH_BYTES = 128 << 20     # written between cold-L2 timed calls (L2 50 MB)
 # bf16 slice against the f32 eval DarkNet: mean abs error per channel
 # group, about twice what the seeded full-width run measures
 BF16_BANDS = {"confidence": 2e-2, "box": 2e-2, "class": 2e-3}
@@ -105,7 +114,7 @@ TRAIN_EPOCHS, TRAIN_CROPS, EVAL_CROPS = 2, 512, 128
 # kernel-name substrings for the profiles' groups, first match wins
 GROUPS = (("routing_bwd (K4)", ("routing_bwd_sweep", "bwd_prep_kernel",
                                 "bwd_finish_kernel")),
-          ("routing", ("routing_pass_kernel", "routing_squash_kernel")),
+          ("routing", ("routing_kernel",)),
           ("Adam", ("adam", "multi_tensor_apply")),
           ("input_stage", ("input_stage_kernel",)),
           ("pool_leaky", ("pool_leaky_kernel",)),
@@ -138,10 +147,25 @@ def read_launches():
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def time_ms(fn, iters=20, warmup=3):
+def time_ms(fn, iters=20, warmup=3, cold=False):
+    """Mean CUDA-event time of ``fn`` per call.  ``cold``: before every
+    call, outside the timed span, write FLUSH_BYTES (more than the L2)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if cold:
+        buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
+        spans = []
+        for _ in range(iters):
+            buf.fill_(1.0)
+            span = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            span[0].record()
+            fn()
+            span[1].record()
+            spans.append(span)
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in spans) / iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -474,7 +498,11 @@ def check_routing():
         # 0.1 N(0, 1), as models/init.py draws the route weights
         w = 0.1 * torch.randn((n, k, 8, 16), generator=g, device="cuda")
         for bf16 in (False, True):
-            got = routing.routed_capsules(x, w, 3, bf16=bf16)
+            io = torch.bfloat16 if bf16 else torch.float32
+            xi, wi = x.to(io), w.to(io)
+            # NaN wherever the kernel reads shared memory it never wrote
+            _build.fill_shared_memory(float("nan"))
+            got = routing.routed_capsules(xi, wi, 3, bf16=bf16)
             torch.cuda.synchronize()
             want = routing.routed_capsules_plain(x, w, 3, bf16=bf16)
             err = (got - want).abs().max().item()
@@ -598,6 +626,38 @@ def count_kernels(fn):
                and e.self_device_time_total > 0)
 
 
+def launch_breakdown(fn, label, calls=3):
+    """Device time of each CUDA kernel one call of ``fn`` issues, in issue
+    order, averaged over ``calls`` profiled calls (torch.profiler); prints
+    one line per launch and returns [(name, ms)]."""
+    per_call = count_kernels(fn)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls + 1):   # the first call may lose events
+            fn()
+            torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    kernels = kernels[-calls * per_call:]
+    if len(kernels) < calls * per_call:  # a measurement, not a check
+        print(f"[breakdown] {label}: the profiler saw {len(kernels)} of "
+              f"{calls * per_call} kernels; no breakdown")
+        return []
+    out = []
+    for i in range(per_call):
+        name = kernels[i][1]
+        ms = sum(kernels[c * per_call + i][2] for c in range(calls)) / calls
+        out.append((name, ms / 1e3))
+    total = sum(ms for _, ms in out)
+    print(f"[breakdown] {label}: {per_call} launches, {total:.4f} ms of "
+          "kernel time per call:")
+    for i, (name, ms) in enumerate(out):
+        print(f"[breakdown]   {i}  {ms:8.4f} ms  {name[:90]}")
+    return out
+
+
 def time_routing(w_model):
     """K3 at CapsuleNet's shape with the slice's route weights, per
     dtype: kernel, plain version, bound, kernels per call."""
@@ -608,6 +668,8 @@ def time_routing(w_model):
         io = torch.bfloat16 if bf16 else torch.float32
         xi, wi = x.to(io), w_model.to(io)  # operands as the kernel reads them
         t = {"ms": time_ms(lambda: routing.routed_capsules(xi, wi, 3, bf16)),
+             "cold_ms": time_ms(lambda: routing.routed_capsules(
+                 xi, wi, 3, bf16), cold=True),
              # one iteration: the votes pass alone, no logits or softmax
              "ms_1": time_ms(lambda: routing.routed_capsules(xi, wi, 1, bf16)),
              "plain_ms": time_ms(lambda: routing.routed_capsules_plain(
@@ -623,7 +685,10 @@ def time_routing(w_model):
               f"{nb} bytes, votes {votes} + routing {passes} FLOP), plain "
               f"(compute_priors+dynamic_routing) {t['plain_ms']:.4f} ms; "
               f"n_iter 1 (votes pass + squash) {t['ms_1']:.4f} ms, each "
-              f"later iteration {(t['ms'] - t['ms_1']) / 2:.4f} ms")
+              f"later iteration {(t['ms'] - t['ms_1']) / 2:.4f} ms; L2 "
+              f"flushed before each call {t['cold_ms']:.4f} ms")
+        launch_breakdown(lambda: routing.routed_capsules(xi, wi, 3, bf16),
+                         f"routing {name}")
         out[bf16] = t
     return out
 
@@ -670,8 +735,9 @@ def check_routing_bwd():
         for bf16 in (False, True):
             io = torch.bfloat16 if bf16 else torch.float32
             _, s = routing.routing_states_plain(x, w, 3, bf16)
-            dx, dw = routing.routed_capsules_backward(x.to(io), w.to(io), s,
-                                                      cot, 3, bf16)
+            xi, wi = x.to(io), w.to(io)
+            _build.fill_shared_memory(float("nan"))  # as in phase 7
+            dx, dw = routing.routed_capsules_backward(xi, wi, s, cot, 3, bf16)
             torch.cuda.synchronize()
             want = routing.routed_capsules_backward_plain(x, w, s, cot, 3,
                                                           bf16)
@@ -826,6 +892,8 @@ def time_routing_bwd(w_model):
         _, s = routing.routing_states_plain(x, w_model, 3, bf16)
         t = {"ms": time_ms(lambda: routing.routed_capsules_backward(
                  xi, wi, s, cot, 3, bf16)),
+             "cold_ms": time_ms(lambda: routing.routed_capsules_backward(
+                 xi, wi, s, cot, 3, bf16), cold=True),
              "plain_ms": time_ms(
                  lambda: routing.routed_capsules_backward_plain(
                      x, w_model, s, cot, 3, bf16), iters=5)}
@@ -838,7 +906,10 @@ def time_routing_bwd(w_model):
               f"{t['ms']:.4f} ms ({t['kernels']} CUDA kernels per call), "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {nb} bytes, "
               f"votes+dx+dW {products} + routing {passes} FLOP), plain "
-              f"(routed_capsules_backward_plain) {t['plain_ms']:.4f} ms")
+              f"(routed_capsules_backward_plain) {t['plain_ms']:.4f} ms; L2 "
+              f"flushed before each call {t['cold_ms']:.4f} ms")
+        launch_breakdown(lambda: routing.routed_capsules_backward(
+            xi, wi, s, cot, 3, bf16), f"routing_bwd {'bf16' if bf16 else 'f32'}")
         out[bf16] = t
     return out
 
@@ -928,6 +999,9 @@ def main():
     # phase 9
     cparams.compute_dtype = "float32"
     cmodel = predict.restore_capsule(cparams, cmodel_dir, "last").cuda()
+    for io in (torch.float32, torch.bfloat16):
+        print(f"[config] K3 and K4 at B {CAPS_BATCH}, N 1296, K 43, n_iter 3, "
+              f"{io}: {routing.kernel_config(CAPS_BATCH, 1296, 43, 3, io)}")
     k3 = time_routing(cmodel.traffic_sign_capsules.route_weights[0].detach())
     time_capsule_serving(cmodel, crops)
 

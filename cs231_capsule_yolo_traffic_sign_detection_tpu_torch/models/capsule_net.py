@@ -59,12 +59,29 @@ class CapsuleRouting(nn.Module):
         self.n_iter = n_iter
         self.route_weights = nn.Parameter(
             torch.zeros(1, n_nodes, n_caps, in_c, out_c))
+        self._bf16_key, self._bf16_w = None, None
 
     def forward(self, x, bf16=False):
         w = self.route_weights[0]
         if w.shape[1] == 1:
             return routed_single_capsule(x, w)
-        return routed_capsules(x, w, self.n_iter, bf16=bf16)
+        return routed_capsules(x, self._routed_weights(w, bf16), self.n_iter,
+                               bf16=bf16)
+
+    def _routed_weights(self, w, bf16):
+        """The route weights as K3 reads them.  bf16 serving (no gradient)
+        reuses one bf16 copy, made again when the parameter changes (in
+        place, or moved); with a gradient `RoutedCapsules` casts inside
+        the op, so the gradient reaches the f32 weights."""
+        if not bf16 or (torch.is_grad_enabled() and w.requires_grad):
+            return w
+        p = self.route_weights
+        key = (p.data_ptr(), p._version, p.device)
+        if key != self._bf16_key:
+            with torch.no_grad():
+                self._bf16_w = w.to(torch.bfloat16)
+            self._bf16_key = key
+        return self._bf16_w
 
 
 class CapsuleNet(nn.Module):

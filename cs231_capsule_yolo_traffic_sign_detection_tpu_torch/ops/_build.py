@@ -22,8 +22,8 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 SOURCES = ("pool_leaky.cu", "input_stage.cu", "routing.cu",
-           "routing_bwd.cu")
-HEADERS = ("common.cuh",)
+           "routing_bwd.cu", "fill_shared.cu")
+HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -102,18 +102,27 @@ def library():
     lib.cyt_input_stage.argtypes = [p, p, p, p, i64, i64, i64, f32, i32, p]
     lib.cyt_input_stage.restype = i32
     lib.cyt_routing.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, i64,
-                                i32, i32, i32, p]
+                                i32, i32, i32, i32, p]
     lib.cyt_routing.restype = i32
-    lib.cyt_routing_tile.argtypes = [i64, i64, i64, i32]
-    lib.cyt_routing_tile.restype = i32
+    lib.cyt_routing_plan.argtypes = [i64, i64, i64, i32, ctypes.POINTER(i32)]
+    lib.cyt_routing_plan.restype = i32
     lib.cyt_routing_bwd.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64,
-                                    i64, i64, i32, i32, i32, i32, p]
+                                    i64, i64, i32, i32, i32, p]
     lib.cyt_routing_bwd.restype = i32
-    pi32 = ctypes.POINTER(i32)
-    lib.cyt_routing_bwd_tiles.argtypes = [i64, i64, i64, i32, i32, pi32,
-                                          pi32]
-    lib.cyt_routing_bwd_tiles.restype = i32
+    lib.cyt_routing_bwd_plan.argtypes = [i64, i64, i64, i32, i32,
+                                         ctypes.POINTER(i32)]
+    lib.cyt_routing_bwd_plan.restype = i32
+    lib.cyt_fill_shared.argtypes = [f32, p]
+    lib.cyt_fill_shared.restype = i32
     return lib
+
+
+def fill_shared_memory(value=float("nan")):
+    """Fill every SM's shared memory with ``value`` on the current stream
+    (csrc/fill_shared.cu), so that a kernel launched next that reads
+    shared memory it never wrote reads ``value``.  A test aid."""
+    check(library().cyt_fill_shared(
+        value, torch.cuda.current_stream().cuda_stream), "fill_shared")
 
 
 def check(err, name):

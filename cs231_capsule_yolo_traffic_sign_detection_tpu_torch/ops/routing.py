@@ -144,17 +144,18 @@ def _k3(x, w, n_iter, bf16, s_saved=None):
     b, n, c = x.shape
     k, d = w.shape[1], w.shape[3]
     with torch.cuda.device(x.device):
-        tile = _tile_nodes(b, n, k, _build.DTYPE_CODES[x.dtype],
-                           torch.cuda.current_device())
+        plan = _plan(b, n, k, _build.DTYPE_CODES[x.dtype],
+                     torch.cuda.current_device())
         # per (element, node tile) node sums: 11.4 MB at CapsuleNet's shape
-        partial = torch.empty((b, -(-n // tile), k, d), dtype=torch.float32,
-                              device=x.device)
+        partial = torch.empty((b, -(-n // plan["tile"]), k, d),
+                              dtype=torch.float32, device=x.device)
         vsum = torch.empty((b, k, d), dtype=torch.float32, device=x.device)
         out = torch.empty((b, k, d), dtype=torch.float32, device=x.device)
         err = _build.library().cyt_routing(
             x.data_ptr(), w.data_ptr(), partial.data_ptr(), vsum.data_ptr(),
             out.data_ptr(), None if s_saved is None else s_saved.data_ptr(),
-            b, n, k, c, d, int(n_iter), tile, _build.DTYPE_CODES[x.dtype],
+            b, n, k, c, d, int(n_iter), plan["tile"], plan["blocks"],
+            _build.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "routing")
     routed_capsules.launches += 1
@@ -199,7 +200,7 @@ def routed_capsules(x, w, n_iter=3, bf16=False):
     (B, K, 16) f32.  No (B, N, K, D) votes tensor is made on a card.
     Differentiable in x and w (K4 on a card).  The count of calls that
     launched the forward kernel is ``routed_capsules.launches`` (one
-    per call; the call issues 2 * n_iter CUDA kernels).
+    per call, which issues one CUDA kernel).
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"routed_capsules: unsupported device {x.device}")
@@ -240,20 +241,20 @@ def routed_capsules_backward(x, w, s_saved, g, n_iter=3, bf16=False):
     io = torch.bfloat16 if bf16 else torch.float32
     xi, wi = x.to(io), w.to(io)
     with torch.cuda.device(x.device):
-        pass_tile, grad_tile = _bwd_tiles(b, n, k, int(n_iter),
-                                          _build.DTYPE_CODES[io],
-                                          torch.cuda.current_device())
+        plan = _bwd_plan(b, n, k, int(n_iter), _build.DTYPE_CODES[io],
+                         torch.cuda.current_device())
         f32 = dict(dtype=torch.float32, device=x.device)
         # per element: sbar_t, the running sums V_t and v_t (3 n_iter - 2
-        # vectors of K x D); per (element, node tile) partial sums
+        # vectors of K x D); per (element, cluster of node tiles) partial
+        # sums of vbar
         state = torch.empty((b, 3 * n_iter - 2, k, d), **f32)
-        partial = torch.empty((b, -(-n // pass_tile), k, d), **f32)
+        partial = torch.empty((b, plan["partials"], k, d), **f32)
         dx = torch.empty((b, n, c), **f32)
         dw = torch.empty((n, k, c, d), **f32)
         err = _build.library().cyt_routing_bwd(
             xi.data_ptr(), wi.data_ptr(), s_saved.data_ptr(), g.data_ptr(),
             state.data_ptr(), partial.data_ptr(), dx.data_ptr(),
-            dw.data_ptr(), b, n, k, c, d, int(n_iter), pass_tile, grad_tile,
+            dw.data_ptr(), b, n, k, c, d, int(n_iter), plan["group"],
             _build.DTYPE_CODES[io],
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "routing_bwd")
@@ -264,27 +265,41 @@ def routed_capsules_backward(x, w, s_saved, g, n_iter=3, bf16=False):
 routed_capsules_backward.launches = 0
 
 
-@functools.lru_cache(maxsize=64)
-def _tile_nodes(b, n, k, dtype_code, device_index):
-    """Nodes per block for K3's node tiles on the current device
-    (csrc/routing.cu:pick_tile), cached per shape, type and device."""
-    tile = _build.library().cyt_routing_tile(b, n, k, dtype_code)
-    if tile <= 0:
-        raise RuntimeError("routed_capsules: no node tile for "
-                           f"B {b}, N {n}, K {k} on this device")
-    return tile
+def kernel_config(b, n, k, n_iter=3, dtype=torch.float32):
+    """What K3 and K4 pick for (B, N, K, n_iter) in ``dtype`` on the
+    current card, as a dict: K3's and K4's launch plans."""
+    code, dev = _build.DTYPE_CODES[dtype], torch.cuda.current_device()
+    return {"k3": _plan(b, n, k, code, dev),
+            "k4": _bwd_plan(b, n, k, n_iter, code, dev)}
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_tiles(b, n, k, n_iter, dtype_code, device_index):
-    """K4's node tiles (pass launches, final launch) on the current
-    device (csrc/routing_bwd.cu:pick_tiles), cached like `_tile_nodes`."""
-    pass_tile, grad_tile = ctypes.c_int(0), ctypes.c_int(0)
-    err = _build.library().cyt_routing_bwd_tiles(
-        b, n, k, n_iter, dtype_code, ctypes.byref(pass_tile),
-        ctypes.byref(grad_tile))
-    if err != 0 or pass_tile.value <= 0 or grad_tile.value <= 0:
-        raise RuntimeError("routed_capsules_backward: no node tiles for "
+def _plan(b, n, k, dtype_code, device_index):
+    """K3's launch on the current device (csrc/routing.cu:
+    cyt_routing_plan), cached per shape, type and device: the node tile
+    and the cooperative grid's blocks."""
+    out = (ctypes.c_int * 2)()
+    err = _build.library().cyt_routing_plan(b, n, k, dtype_code, out)
+    if err != 0:
+        raise RuntimeError("routed_capsules: no launch plan for "
+                           f"B {b}, N {n}, K {k} on this device "
+                           f"(cudaError {err})")
+    return dict(zip(("tile", "blocks"), out))
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_plan(b, n, k, n_iter, dtype_code, device_index):
+    """K4's launch plan on the current device (csrc/routing_bwd.cu:
+    cyt_routing_bwd_plan), cached like `_plan`: elements per state
+    copy, CTAs per cluster, nodes per CTA of the pass and final launches,
+    partial sums per element, clusters resident at once in the final and
+    the pass launches."""
+    out = (ctypes.c_int * 7)()
+    err = _build.library().cyt_routing_bwd_plan(b, n, k, n_iter, dtype_code,
+                                                out)
+    if err != 0:
+        raise RuntimeError("routed_capsules_backward: no launch plan for "
                            f"B {b}, N {n}, K {k}, n_iter {n_iter} on this "
                            f"device (cudaError {err})")
-    return pass_tile.value, grad_tile.value
+    return dict(zip(("group", "cluster", "pass_nodes", "final_nodes",
+                     "partials", "final_resident", "pass_resident"), out))

@@ -29,6 +29,8 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.interop import (
     jax_variables_to_state_dict)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.metrics import (
     classification as cls)
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models.capsule_net \
+    import CapsuleRouting
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
     capsule as caps, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.params import Params
@@ -112,6 +114,33 @@ def test_routing_wrapper_rejects_unsupported_devices():
     w = torch.empty((16, 5, 8, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         routing.routed_capsules(x, w)
+
+
+def test_bf16_serving_reuses_one_copy_of_the_route_weights():
+    x, w = (torch.from_numpy(a) for a in _routing_inputs(5, n=40, k=7))
+    layer = CapsuleRouting(7, 40, 8, 16)
+    with torch.no_grad():
+        layer.route_weights.copy_(w[None])
+
+    def uncached():  # what the op computes from the f32 parameter
+        return routing.routed_capsules(x, layer.route_weights[0].detach(), 3,
+                                       bf16=True)
+
+    with torch.no_grad():
+        first = layer(x, bf16=True)
+        copy = layer._bf16_w
+        assert copy.dtype == torch.bfloat16
+        second = layer(x, bf16=True)
+        assert layer._bf16_w is copy  # made once, reused
+        assert torch.equal(first, uncached()) and torch.equal(second, first)
+        layer.route_weights.mul_(2.0)  # an in-place update: a new copy
+        third = layer(x, bf16=True)
+        assert layer._bf16_w is not copy
+        assert torch.equal(third, uncached())
+    # with a gradient the op casts inside, and the gradient reaches f32
+    layer(x, bf16=True).sum().backward()
+    assert layer.route_weights.grad.dtype == torch.float32
+    assert layer.route_weights.grad.abs().max() > 0
 
 
 # ---------------------------------------------------------------- interop

@@ -20,7 +20,7 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
     CapsuleNet, DarkNet)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
-    input_stage as ist, pool, routing)
+    _build, input_stage as ist, pool, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.params import Params
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
     checkpoint as ckpt, steps)
@@ -80,14 +80,24 @@ def test_dark_pred_on_card_matches_cpu(card, tmp_path):
     np.testing.assert_allclose(y_card, y_cpu, atol=5e-5)
 
 
+# CapsuleNet's shape, then the edges of the kernels' tiling: B not a
+# multiple of the element groups, N not a multiple of the node tiles
+# times the cluster, one capsule and the most the kernels take
+ROUTING_SHAPES = [(64, 1296, 43), (3, 150, 5), (17, 1297, 48), (3, 150, 1)]
+
+
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(64, 1296, 43), (3, 150, 5)])
+@pytest.mark.parametrize("shape", ROUTING_SHAPES)
 def test_routing_kernel_matches_plain(card, bf16, shape):
     b, n, k = shape
     x = torch.randn((b, n, 8), generator=card, device="cuda")
     w = 0.1 * torch.randn((n, k, 8, 16), generator=card, device="cuda")
+    io = torch.bfloat16 if bf16 else torch.float32
+    xi, wi = x.to(io), w.to(io)
     before = routing.routed_capsules.launches
-    got = routing.routed_capsules(x, w, 3, bf16=bf16)
+    # NaN wherever the kernel would read shared memory it never wrote
+    _build.fill_shared_memory(float("nan"))
+    got = routing.routed_capsules(xi, wi, 3, bf16=bf16)
     torch.cuda.synchronize()
     assert routing.routed_capsules.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (b, k, 16)
@@ -115,26 +125,51 @@ def test_class_pred_on_card_matches_cpu(card, tmp_path):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(8, 1296, 43), (3, 150, 5)])
+@pytest.mark.parametrize("shape", [(8, 1296, 43, 3), (3, 150, 5, 3),
+                                   (17, 1297, 48, 3), (3, 150, 1, 3),
+                                   (17, 150, 43, 1), (17, 150, 43, 5),
+                                   (5, 1297, 48, 5)])
 def test_routing_backward_kernel_matches_plain(card, bf16, shape):
-    b, n, k = shape
+    b, n, k, n_iter = shape
     x = torch.randn((b, n, 8), generator=card, device="cuda")
     w = 0.1 * torch.randn((n, k, 8, 16), generator=card, device="cuda")
     g = torch.randn((b, k, 16), generator=card, device="cuda")
-    _, s = routing.routing_states_plain(x, w, 3, bf16)
+    _, s = routing.routing_states_plain(x, w, n_iter, bf16)
     before = routing.routed_capsules_backward.launches
     io = torch.bfloat16 if bf16 else torch.float32
-    dx, dw = routing.routed_capsules_backward(x.to(io), w.to(io), s, g, 3,
-                                              bf16)
+    xi, wi = x.to(io), w.to(io)
+    _build.fill_shared_memory(float("nan"))
+    dx, dw = routing.routed_capsules_backward(xi, wi, s, g, n_iter, bf16)
     torch.cuda.synchronize()
     assert routing.routed_capsules_backward.launches == before + 1
     assert dx.dtype == dw.dtype == torch.float32
-    want = routing.routed_capsules_backward_plain(x, w, s, g, 3, bf16)
+    want = routing.routed_capsules_backward_plain(x, w, s, g, n_iter, bf16)
     # the kernel sums in another order; bf16 operands are rounded alike
     # on both sides, so the f32 band of tests/test_pallas_routing.py
     # holds in both modes
     for got, ref in zip((dx, dw), want):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_routing_kernels_are_deterministic(card, bf16):
+    # no atomics: every sum over node tiles, cluster ranks and warps goes
+    # in a fixed order, so two calls agree bit for bit
+    b, n, k = 64, 1296, 43
+    io = torch.bfloat16 if bf16 else torch.float32
+    x = torch.randn((b, n, 8), generator=card, device="cuda").to(io)
+    w = (0.1 * torch.randn((n, k, 8, 16), generator=card,
+                           device="cuda")).to(io)
+    g = torch.randn((b, k, 16), generator=card, device="cuda")
+    runs = []
+    for _ in range(2):
+        s = torch.empty((3, b, k, 16), device="cuda")
+        caps = routing._k3(x, w, 3, bf16, s)
+        runs.append((caps, *routing.routed_capsules_backward(x, w, s, g, 3,
+                                                             bf16)))
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 def test_train_step_on_card(card):
