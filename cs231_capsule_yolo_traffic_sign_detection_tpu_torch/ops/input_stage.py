@@ -87,8 +87,10 @@ def input_stage(x, w, b, negative_slope=0.1):
     kernel [3, 3, 3, n_out] (HWIO) and b: [n_out], both f32 (the kernel
     accumulates in f32; round w through bf16 first to serve bf16
     operands); the CUDA kernel takes n_out = 32.  Returns
-    [B, H, W, n_out] in x.dtype.  The count of kernel launches is
-    ``input_stage.launches``.
+    [B, H, W, n_out] in x.dtype.  On bf16 the CUDA kernel runs on the
+    tensor cores and rounds once, to the output; the plain bf16 version
+    also rounds the conv before the bias.  The count of kernel launches
+    is ``input_stage.launches``.
     """
     n_out = w.shape[-1]
     if x.device.type == "cpu":

@@ -22,11 +22,13 @@ from .train import checkpoint as ckpt
 
 
 def restore_darknet(params, model_dir, restore_file):
-    """DarkNet with weights from ``<model_dir>/<restore_file>.ckpt``
-    (strict load), on the CPU."""
+    """DarkNet with weights from ``<model_dir>/<restore_file>.ckpt``, or
+    the same file under ``model_dir + str(train_frac)`` where training
+    writes it (strict load), on the CPU."""
     path = ckpt.checkpoint_path(model_dir, restore_file)
     print("Restoring parameters from {}".format(path))
-    raw = ckpt.load_checkpoint(path)
+    raw = ckpt.load_checkpoint(
+        path, fallback_dirs=[model_dir + str(params.get("train_frac", 1))])
     model = DarkNet(n_boxes=int(params.n_boxes),
                     n_classes=int(params.n_classes))
     model.load_state_dict(raw["state_dict"], strict=True)

@@ -52,15 +52,48 @@ def test_pool_kernel_refuses_non_nhwc(card):
         pool.maxpool2_leaky(x.transpose(1, 2))
 
 
-def test_input_stage_kernel_matches_plain(card):
-    x = torch.rand((2, 448, 448, 3), generator=card, device="cuda") * 2 - 1
+# K2 at 448 px (16-byte halo loads), then ragged: pooled 33 x 65 with
+# W2 % 8 != 0 (16-bit halo loads) and pooled 33 x 68 with 16-byte
+# loads; neither fills the kernels' tiles, and a bf16 block walks 4 row
+# tiles then 1
+INPUT_STAGE_SHAPES = [(2, 448, 448, 3), (3, 66, 130, 3), (2, 66, 136, 3)]
+
+
+def _input_stage_operands(card, shape):
+    x = torch.rand(shape, generator=card, device="cuda") * 2 - 1
     w = 0.3 * torch.randn((3, 3, 3, 32), generator=card, device="cuda")
     b = torch.randn((32,), generator=card, device="cuda")
+    return x, w, b
+
+
+@pytest.mark.parametrize("shape", INPUT_STAGE_SHAPES)
+def test_input_stage_kernel_matches_plain(card, shape):
+    x, w, b = _input_stage_operands(card, shape)
     got = ist.input_stage(x, w, b)
     wp, bp = ist.phase_kernel(w, b)
     # f32, 27-term sums in another order
     torch.testing.assert_close(got, ist.input_stage_apply(x, wp, bp, 32),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", INPUT_STAGE_SHAPES)
+def test_input_stage_bf16_kernel_matches_one_rounding(card, shape):
+    x, w, b = _input_stage_operands(card, shape)
+    xb, wb = x.bfloat16(), w.bfloat16().float()  # the operands it serves
+    before = ist.input_stage.launches
+    # NaN wherever the kernel would read shared memory it never wrote
+    _build.fill_shared_memory(float("nan"))
+    got = ist.input_stage(xb, wb, b)
+    torch.cuda.synchronize()
+    assert ist.input_stage.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    wp, bp = ist.phase_kernel(wb, b)
+    want = ist.input_stage_apply(xb.float(), wp, bp, 32).to(torch.bfloat16)
+    # f32 sums in another order, then one rounding: within one bf16 ulp
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7,
+                               atol=1e-5)
+    # no atomics, a fixed order of sums: two calls agree bit for bit
+    assert torch.equal(got, ist.input_stage(xb, wb, b))
 
 
 def test_dark_pred_on_card_matches_cpu(card, tmp_path):

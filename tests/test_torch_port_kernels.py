@@ -122,6 +122,26 @@ def test_input_stage_plain_bf16_matches_pallas_interpret():
     assert err.max() < 0.1, err.max()
 
 
+def test_input_stage_one_rounding_bf16_matches_pallas_interpret():
+    # the reference the card holds K2's bf16 kernel to: f32 math on bf16
+    # operands, rounded once to bf16, as the TPU kernel (bf16 operands,
+    # f32 accumulation, one bf16 store)
+    rng = np.random.RandomState(4)
+    x = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    w = (0.3 * rng.randn(3, 3, 3, 32)).astype(np.float32)
+    b = (0.1 * rng.randn(32)).astype(np.float32)
+    jwp, jbp = jax_is.phase_kernel(w, b)
+    want = np.asarray(jax_is.input_stage_pallas(
+        jnp.asarray(x), jwp, jbp, 32, interpret=True), np.float32)
+    xt = torch.from_numpy(x).bfloat16()
+    wt = torch.from_numpy(w).bfloat16().float()
+    wp, bp = ist.phase_kernel(wt, torch.from_numpy(b))
+    got = ist.input_stage_apply(xt.float(), wp, bp, 32).to(torch.bfloat16)
+    # f32 sums in another order, then one rounding: within one bf16 ulp
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2**-7,
+                               atol=1e-5)
+
+
 def test_wrappers_reject_unsupported_devices():
     x = torch.empty((1, 4, 4, 3), device="meta")
     w = torch.empty((3, 3, 3, 32), device="meta")

@@ -28,6 +28,8 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.interop import (
     jax_variables_to_state_dict)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.metrics import (
     detection as det)
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
+    DarkNet)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
     preprocess)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.params import Params
@@ -185,7 +187,8 @@ def test_no_file_of_the_port_imports_jax():
               "cs231_capsule_yolo_traffic_sign_detection_tpu")
     # the package and what runs on the card's machine, which has no JAX
     files = list(PORT.rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tests" / "test_torch_port_cuda.py"]
+        REPO / "chip_smoke.py", REPO / "k2_turns.py",
+        REPO / "tests" / "test_torch_port_cuda.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -207,3 +210,24 @@ def test_cuda_without_a_card_raises():
         predict.dark_pred([], ".", Params(**PARAMS), "last")
     assert device.resolve_device("cpu") == torch.device("cpu")
     assert cyt_torch.Params is Params
+
+
+def test_restore_darknet_falls_back_to_the_train_frac_dir(tmp_path):
+    # training writes <model_dir><train_frac>/last.ckpt; restore reads it
+    # from there when <model_dir>/last.ckpt is absent, as JAX
+    # restore_variables does
+    torch.manual_seed(0)
+    sd = DarkNet(1, 43).state_dict()
+    ckpt.save_checkpoint({"epoch": 1, "state_dict": sd, "optim_dict": {}},
+                         is_best=False,
+                         checkpoint_dir=str(tmp_path / "darknet_r1"))
+    model = predict.restore_darknet(Params(**PARAMS),
+                                    str(tmp_path / "darknet_r"), "last")
+    for name, t in model.state_dict().items():
+        torch.testing.assert_close(t, sd[name], rtol=0, atol=0, msg=name)
+
+
+def test_restore_darknet_without_a_checkpoint_raises(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        predict.restore_darknet(Params(**PARAMS),
+                                str(tmp_path / "darknet_r"), "last")
