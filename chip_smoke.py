@@ -67,7 +67,25 @@ to 0 just before it, and is checked on all four just after):
 12. timings: K4 per call beside its bound and its plain version, warm
    and with the L2 flushed, and the device time of each CUDA kernel one
    call issues; the train step's ms per batch of 64 and img/s, f32 and
-   bf16, with the profile of the same calls.
+   bf16, with the profile of the same calls;
+13. the darknet_r training slice at full width through
+   `train_and_evaluate`, as the CLI calls it: 448 px, batch 32, dropout
+   0.5, 64/16 synthetic scenes, 2 epochs, f32 then bf16.  No kernel may
+   launch during training (the step runs through cuDNN, BN, pool, Adam),
+   the train loss must fall, and `dark_pred` must read the written
+   last.ckpt back with K2 once and K1 four times per batch and match
+   eval-mode DarkNet from the same checkpoint (phase 5's checks and
+   bands).  On one batch: after a step every parameter's gradient is
+   finite and non-zero.  Two 1-epoch runs from one seed give the same
+   loss to the bit, another seed another (dropout masks from the
+   trainer's generator; cuDNN's deterministic algorithms for this
+   pair).  Then 1 epoch fine-tuning from a darknet19 npz the script
+   writes, fine_tune 18: the frozen blocks stay the npz's to the bit,
+   the head moves, and bn_1's running mean moves;
+14. timings: the darknet_r train step (forward with dropout, dark_loss,
+   backward, Adam) at batch 32, f32 and bf16, ms and img/s beside its
+   operation bound, with the profile of the same calls (conv forward,
+   dgrad, wgrad, BN, pool, leaky, dropout, Adam, other).
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -75,6 +93,7 @@ line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
 import json
 import os
+import shutil
 import subprocess
 import time
 
@@ -91,7 +110,7 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.metrics import (
     classification as clsm, detection as det)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
-    CapsuleNet, DarkNet)
+    DARKNET_LAYERS, CapsuleNet, DarkNet)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
     _build, capsule as caps, decode, input_stage as ist, pool, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
@@ -122,6 +141,9 @@ K3_TOL = {False: dict(rtol=2e-5, atol=2e-6), True: dict(rtol=0.05, atol=5e-3)}
 K4_TOL = {False: dict(rtol=1e-4, atol=1e-6), True: dict(rtol=0.08, atol=0.02)}
 # the training slice: 2 epochs over the JAX fallback's 512/128 crops
 TRAIN_EPOCHS, TRAIN_CROPS, EVAL_CROPS = 2, 512, 128
+# the detector's training slice: 2 epochs over the JAX fallback's 64/16
+# scenes at 448 px (loader._SYNTH_FULL["detection"])
+DARK_TRAIN_SCENES, DARK_EVAL_SCENES = 64, 16
 # kernel-name substrings for the profiles' groups, first match wins
 GROUPS = (("routing_bwd (K4)", ("routing_bwd_sweep", "bwd_prep_kernel",
                                 "bwd_finish_kernel")),
@@ -134,6 +156,20 @@ GROUPS = (("routing_bwd (K4)", ("routing_bwd_sweep", "bwd_prep_kernel",
           ("layout", ("nchwtonhwc", "nhwctonchw")),
           ("conv (cuDNN)", ("conv", "gemm", "xmma", "cudnn", "cutlass",
                             "sm90", "implicit", "fprop", "nhwc", "nchw")))
+# the detector's train step: cuDNN's BN and pooling kernels carry
+# "cudnn"/"nhwc" in their names, so they come before the convs
+DARK_GROUPS = (("Adam", ("adam", "multi_tensor_apply")),
+               ("dropout mask", ("bernoulli",)),
+               ("BN", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+               ("pool", ("max_pool", "maxpool", "pooling")),
+               ("leaky", ("leaky",)),
+               ("conv wgrad", ("wgrad",)),
+               ("conv dgrad", ("dgrad",)),
+               ("layout", ("nchwtonhwc", "nhwctonchw")),
+               ("where/div (dropout apply, loss)", ("where", "div")),
+               ("conv fprop, other cuDNN", ("conv", "gemm", "xmma", "cudnn",
+                                            "cutlass", "sm90", "implicit",
+                                            "fprop", "winograd", "fft")))
 
 
 def require(cond, msg):
@@ -449,15 +485,15 @@ def time_input_stage(sd):
     return k2
 
 
-def group_of(name):
+def group_of(name, groups=GROUPS):
     low = name.lower()
-    for group, keys in GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
     return "other"
 
 
-def profile_ms(fn, wall_ms, iters=5):
+def profile_ms(fn, wall_ms, iters=5, groups=GROUPS, top=10):
     """Where ``fn``'s device time goes, per call: prints the kernel time
     by group, the device busy share (kernel time over ``wall_ms``, the
     CUDA-event time of one call) and the ten longest kernels."""
@@ -481,14 +517,15 @@ def profile_ms(fn, wall_ms, iters=5):
     require(total > 0, "the profiler saw no device time")
     by_group = {}
     for key, t, _ in kernels:
-        by_group[group_of(key)] = by_group.get(group_of(key), 0.0) + t
+        g = group_of(key, groups)
+        by_group[g] = by_group.get(g, 0.0) + t
     for group, t in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {group:14s} {t:9.4f} ms  {t / total:6.3f} of "
               "kernel time")
     # the profiler can drop a few events at the start of its window;
     # launches/iter below 1 per expected launch shows it
     print("[profile]   longest kernels (ms/iter, launches/iter, ms/launch):")
-    for key, t, count in sorted(kernels, key=lambda k: -k[1])[:10]:
+    for key, t, count in sorted(kernels, key=lambda k: -k[1])[:top]:
         print(f"[profile]   {t:9.4f}  {count / iters:5.1f}  "
               f"{t * iters / count:8.4f}  {key[:100]}")
 
@@ -831,8 +868,8 @@ def check_train_step(params, crops, labels):
         grads = []
         for use_kernel in (True, False):
             model.zero_grad(set_to_none=True)
-            loss = (steps.loss_and_scores(model, x, y, cfg)[0] if use_kernel
-                    else plain_loss(model, x, y, cfg))
+            loss = (steps.loss_and_scores(model, x, y, cfg, "capsule")[0]
+                    if use_kernel else plain_loss(model, x, y, cfg))
             loss.backward()
             grads.append({n: p.grad.clone()
                           for n, p in model.named_parameters()})
@@ -847,7 +884,7 @@ def check_train_step(params, crops, labels):
               f"the plain routing max_abs_err per parameter "
               f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }")
         opt = steps.make_optimizer(model)
-        loss, _ = steps.train_step(model, opt, x, y, 1e-3, cfg)
+        loss, _, _ = steps.train_step(model, opt, x, y, 1e-3, cfg, "capsule")
         require(torch.isfinite(loss).item(), f"{dtype}: step loss")
         require(all(torch.isfinite(p).all() for p in model.parameters()),
                 f"{dtype}: parameters not finite after an Adam step")
@@ -961,13 +998,208 @@ def time_train_step(params, crops, labels):
         opt = steps.make_optimizer(model)
 
         def step():
-            return steps.train_step(model, opt, x, y, 1e-3, cfg)
+            return steps.train_step(model, opt, x, y, 1e-3, cfg, "capsule")
 
         ms = time_ms(step, iters=10)
         print(f"[time] capsule train step (forward with recon, loss, "
               f"backward, Adam) batch {CAPS_BATCH} {str(dtype)[6:]}: "
               f"{ms:.3f} ms = {CAPS_BATCH / ms * 1e3:.1f} img/s")
         profile_ms(step, ms)
+        out[dtype] = ms
+    return out
+
+
+def write_darknet19_npz(path, seed=7):
+    """A pretrained-weights npz in the darknet19 layout (layers 1-18:
+    '{i}-scope/kernel:0' HWIO kernels, biases, gamma, moving_mean,
+    moving_variance) from a seed; returns its arrays."""
+    rng = np.random.RandomState(seed)
+    arrs, in_c = {}, 3
+    for i, (out_c, k, _) in enumerate(DARKNET_LAYERS):
+        arrs[f"{i}-scope/kernel:0"] = (
+            (2.0 / (k * k * in_c)) ** 0.5
+            * rng.randn(k, k, in_c, out_c)).astype(np.float32)
+        arrs[f"{i}-scope/biases:0"] = 0.1 * rng.randn(out_c).astype(
+            np.float32)
+        arrs[f"{i}-scope/gamma:0"] = (1 + 0.1 * rng.randn(out_c)).astype(
+            np.float32)
+        arrs[f"{i}-scope/moving_mean:0"] = 0.1 * rng.randn(out_c).astype(
+            np.float32)
+        arrs[f"{i}-scope/moving_variance:0"] = (0.5 + rng.rand(out_c)).astype(
+            np.float32)
+        in_c = out_c
+    np.savez(path, **arrs)
+    return arrs
+
+
+def dark_train_params(dtype, **over):
+    """darknet_r as in experiments/darknet_r/params.json, for 2 epochs at
+    lr 1e-3 (the CLI default), as the CLI's train mode sets it."""
+    p = Params(os.path.join(HERE, "experiments", "darknet_r", "params.json"),
+               model="darknet_r", n_epochs=TRAIN_EPOCHS, lr_runtime=1e-3,
+               eval_every=1, train_frac=1, summary=False,
+               compute_dtype=dtype)
+    p.__dict__.update(over)
+    require((p.batch_size, p.dropout, p.lr_decay, p.darknet_input)
+            == (BATCH, 0.5, 0.5, 448), "darknet_r training config")
+    return p
+
+
+def dark_train(params, model_dir, seed=0):
+    """train_and_evaluate on the synthetic scenes; returns the train
+    losses and the launch counts of the run."""
+    os.makedirs(model_dir, exist_ok=True)
+    np.random.seed(seed)
+    reset_launches()
+    t0 = time.perf_counter()
+    driver.train_and_evaluate(params, os.path.join(model_dir, "nodata"),
+                              model_dir, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    losses_tr = np.load(os.path.join(model_dir, "losses_tr.npy"))
+    print(f"[dark_train] {params.compute_dtype}: train_and_evaluate, "
+          f"{params.n_epochs} epochs of {DARK_TRAIN_SCENES} + "
+          f"{DARK_EVAL_SCENES} scenes, seed {seed}, in {wall:.3f} s (host "
+          f"clock, init, data and checkpoints included); launches "
+          f"{launches}; train losses {losses_tr.tolist()}")
+    require(sum(launches.values()) == 0,
+            f"a kernel launched during training: {launches}")
+    require(np.isfinite(losses_tr).all(), "train loss not finite")
+    return losses_tr, launches
+
+
+def check_dark_grads(params, x, y):
+    """Phase 13, on one batch: after a step every gradient is finite and
+    non-zero and every parameter finite."""
+    cfg = losses.LossConfig.from_params(params)
+    model = DarkNet(n_boxes=1, n_classes=43, dropout=0.5,
+                    dtype=getattr(torch, params.compute_dtype),
+                    seed=0).cuda().train()
+    opt = steps.make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    loss, _, aux = steps.train_step(model, opt, x, y, 1e-3, cfg, "darknet_r",
+                                    gen)
+    for name, p in model.named_parameters():
+        require(torch.isfinite(p.grad).all() and p.grad.abs().max() > 0,
+                f"{params.compute_dtype}: gradient of {name} not finite or "
+                "all zero")
+        require(torch.isfinite(p).all(), f"{name} not finite after a step")
+    print(f"[dark_train] {params.compute_dtype} one step on a batch of "
+          f"{BATCH}: loss {loss.item()}, avg_iou {aux['avg_iou'].item()}; "
+          f"all {len(list(model.parameters()))} gradients finite and "
+          "non-zero")
+
+
+def run_dark_train_slice(frames, y_true, x_np, y_np, root):
+    """Phase 13, with one batch (x_np, y_np) of training scenes for the
+    gradient check; returns the f32 predict leg's launch counts.  Each
+    run's directory (checkpoints of about 0.6 GB) goes once checked."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        params = dark_train_params(dtype)
+        model_dir = os.path.join(root, dtype)
+        losses_tr, _ = dark_train(params, model_dir)
+        require(losses_tr[-1] < losses_tr[0],
+                f"{dtype}: the train loss did not fall: {losses_tr}")
+        check_dark_grads(params, torch.from_numpy(x_np).cuda().to(
+            getattr(torch, dtype)), torch.from_numpy(y_np).cuda())
+        # serve the trained checkpoint: phase 5's checks and bands
+        print(f"[dark_train] {dtype}-trained last.ckpt through dark_pred:")
+        out[dtype] = run_slice(frames, y_true, model_dir,
+                               dark_train_params("float32"))
+        shutil.rmtree(model_dir + "1")
+
+    # the dropout generator: one seed, one loss, to the bit
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    first = []
+    for i, seed in enumerate((0, 0, 1)):
+        model_dir = os.path.join(root, f"seed{seed}_{i}")
+        first.append(float(dark_train(dark_train_params(
+            "float32", n_epochs=1), model_dir, seed)[0][0]))
+        shutil.rmtree(model_dir + "1")
+    torch.backends.cudnn.deterministic = deterministic
+    require(first[0] == first[1] != first[2],
+            f"first-epoch losses for seeds 0, 0, 1: {first}")
+    print(f"[dark_train] first-epoch loss, seeds 0, 0, 1 (cuDNN "
+          f"deterministic): {first}: equal to the bit for one seed")
+
+    # fine-tuning from a pretrained npz, blocks 1-18 frozen
+    npz = os.path.join(root, "darknet19_weights.npz")
+    arrs = write_darknet19_npz(npz)
+    params = dark_train_params("float32", n_epochs=1, do_fine_tune=True,
+                               fine_tune=18, pretrained_weights=npz)
+    model_dir = os.path.join(root, "fine_tune")
+    dark_train(params, model_dir)
+    sd = ckpt.load_checkpoint(os.path.join(model_dir + "1",
+                                           "last.ckpt"))["state_dict"]
+    for i in range(1, 19):
+        for key, name in ((f"conv_{i}.weight", "kernel:0"),
+                          (f"bn_{i}.weight", "gamma:0"),
+                          (f"bn_{i}.bias", "biases:0")):
+            want = arrs[f"{i - 1}-scope/{name}"]
+            if want.ndim == 4:
+                want = want.transpose(3, 2, 0, 1)
+            require(np.array_equal(sd["model." + key].numpy(), want),
+                    f"fine-tune: frozen {key} moved")
+    head = DarkNet(n_boxes=1, n_classes=43, seed=0).model.conv_19.weight
+    require(not torch.equal(sd["model.conv_19.weight"], head.detach()),
+            "fine-tune: the head did not move")
+    require(not np.array_equal(sd["model.bn_1.running_mean"].numpy(),
+                               arrs["0-scope/moving_mean:0"]),
+            "fine-tune: bn_1's running mean did not move")
+    shutil.rmtree(model_dir + "1")
+    print("[dark_train] fine-tune from the npz, fine_tune 18: blocks 1-18 "
+          "equal to the npz to the bit, conv_19 moved, bn_1.running_mean "
+          "moved")
+    return out["float32"]
+
+
+def darknet_train_flop(size=448):
+    """FLOP of one image's train step: every conv forward and wgrad,
+    every conv's dgrad but conv_1's (the input takes no gradient)."""
+    fwd, hw, in_c = [], size, 3
+    for out_c, k, after in DARKNET_LAYERS:
+        fwd.append(2 * hw * hw * in_c * out_c * k * k)
+        in_c = out_c
+        if after == "mp":
+            hw //= 2
+    fwd.append(2 * hw * hw * in_c * (5 + 43))
+    return sum(fwd), 3 * sum(fwd) - fwd[0]
+
+
+def time_dark_train_step(params, x_np, y_np):
+    """Phase 14: the darknet_r train step at batch 32, f32 and bf16:
+    CUDA-event time per step beside its operation bound, then the
+    profile of the same calls; returns {dtype: ms}."""
+    fwd, step_flop = darknet_train_flop()
+    print(f"[time] darknet_r at 448 px: {fwd / 1e9:.2f} GFLOP per image "
+          f"forward, {step_flop * BATCH / 1e12:.3f} TFLOP per train step of "
+          f"{BATCH}")
+    cfg = losses.LossConfig.from_params(params)
+    y = torch.from_numpy(y_np[:BATCH]).cuda()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = DarkNet(n_boxes=1, n_classes=43, dropout=0.5, dtype=dtype,
+                        seed=0).cuda().train()
+        opt = steps.make_optimizer(model)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.from_numpy(x_np[:BATCH]).cuda().to(dtype)
+
+        def step():
+            return steps.train_step(model, opt, x, y, 1e-3, cfg, "darknet_r",
+                                    gen)
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(step, iters=10)
+        bound, by = bound_ms(0, step_flop * BATCH, dtype)
+        print(f"[time] darknet_r train step (forward with dropout, "
+              f"dark_loss, backward, Adam) batch {BATCH} {str(dtype)[6:]}: "
+              f"{ms:.3f} ms = {BATCH / ms * 1e3:.1f} img/s; bound "
+              f"{bound:.3f} ms ({by}), {bound / ms:.3f} of it; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_ms(step, ms, iters=3, groups=DARK_GROUPS, top=15)
         out[dtype] = ms
     return out
 
@@ -1062,6 +1294,18 @@ def main():
     k4 = time_routing_bwd(
         cmodel.traffic_sign_capsules.route_weights[0].detach())
     time_train_step(tparams, tcrops, tlabels)
+
+    # phase 13
+    dx, dy, _, _ = loader.synthetic_dataset(
+        "darknet_r", dark_train_params("float32"), BATCH, 0)
+    dark_launches = run_dark_train_slice(
+        frames, y_true, dx, dy, os.path.join(HERE, "build", "chip_smoke",
+                                             "darknet_r_train"))
+    print(f"[dark_train] launches on the predict leg from the f32-trained "
+          f"checkpoint: {dark_launches}")
+
+    # phase 14
+    time_dark_train_step(dark_train_params("float32"), dx, dy)
 
     pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu_torch"
     jax_pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu"

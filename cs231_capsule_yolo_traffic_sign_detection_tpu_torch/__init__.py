@@ -4,10 +4,12 @@
 
 The JAX package ``cs231_capsule_yolo_traffic_sign_detection_tpu`` beside
 it is the reference; this package imports neither it nor ``jax``.  It
-holds the darknet_r serving path so far: DarkNet-19 at 448 px with BN
-folded into the convs, the fused input stage and pool+leaky as
-hand-written CUDA kernels for sm_90a (``csrc/``), the full-width grid
-decode and the detection metrics.  See README.md, "PyTorch port".
+holds darknet_r serving (DarkNet-19 at 448 px with BN folded into the
+convs, the fused input stage and pool+leaky as hand-written CUDA
+kernels for sm_90a in ``csrc/``, the full-width grid decode, the
+detection metrics) and training, and the capsule classifier's serving
+and training (the routing and its backward as CUDA kernels).  See
+README.md, "PyTorch port".
 """
 
 from . import config  # noqa: F401

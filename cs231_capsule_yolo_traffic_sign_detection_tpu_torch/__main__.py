@@ -1,14 +1,15 @@
-"""CLI of the PyTorch port: darknet_r and capsule predict, capsule train
-and overfit.
+"""CLI of the PyTorch port: darknet_r and capsule predict, train and
+overfit.
 
     python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
         --model darknet_r|capsule --mode predict --restore last \\
         [--dtype float32|bfloat16] [--device cuda|cpu] [--model_dir DIR]
     python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
-        --model capsule --mode train|overfit [--dtype float32|bfloat16] \\
-        [--seed N] [--lr LR] [--recon] [--recon_coef C] [--eval_every N] \\
-        [--train_frac F] [--no_metric] [--restore last|best] \\
-        [--device cuda|cpu] [--model_dir DIR]
+        --model darknet_r|capsule --mode train|overfit \\
+        [--dtype float32|bfloat16] [--seed N] [--lr LR] [--dropout P] \\
+        [--fine_tune N] [--npy] [--recon] [--recon_coef C] \\
+        [--eval_every N] [--train_frac F] [--no_metric] \\
+        [--restore last|best] [--device cuda|cpu] [--model_dir DIR]
 
 Reads ``<model_dir>/params.json``.  predict reads
 ``<model_dir>/<restore>.ckpt`` (the reference's torch format; else the
@@ -20,9 +21,13 @@ overfit train from ``--seed`` (or resume from ``--restore``) on the
 stored set, the first 3 samples of it for overfit, or the synthetic set
 when it is absent, and write ``last.ckpt``/``best.ckpt`` into
 ``<model_dir><train_frac>``.  The reference's quirks are kept: the
-optimizer LR comes from ``--lr`` only, and ``--recon`` turns the
-reconstruction loss OFF.  Any other model or mode exits with a "not
-ported yet" message.
+optimizer LR comes from ``--lr`` only, ``--recon`` turns the
+reconstruction loss OFF, and ``--fine_tune N`` with N > 0 only turns
+fine-tuning on (the darknet19 npz ``params.pretrained_weights``, default
+``./darknet19_weights.npz``, when present): the count of frozen blocks
+is ``fine_tune`` in params.json (18 for darknet_r).  ``--dropout P``
+(P >= 0) overrides the json's dropout.  Any other model or mode exits
+with a "not ported yet" message.
 """
 
 import argparse
@@ -41,15 +46,15 @@ from .predict import class_pred, dark_pred
 from .train.driver import train_and_evaluate
 from .train.logging_utils import ScalarWriter
 
-PORTED = {("darknet_r", "predict"), ("capsule", "predict"),
-          ("capsule", "train"), ("capsule", "overfit")}
+PORTED = {(m, mode) for m in ("darknet_r", "capsule")
+          for mode in ("predict", "train", "overfit")}
 
 parser = argparse.ArgumentParser(
     prog="python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch")
 parser.add_argument("--model", default="darknet_r",
                     help=" | ".join(config.model_names))
-parser.add_argument("--mode", default="predict", help="train | predict | "
-                    "overfit (train and overfit for capsule only)")
+parser.add_argument("--mode", default="predict",
+                    help="train | predict | overfit")
 parser.add_argument("--restore", default=None, help="last | best")
 parser.add_argument("--model_dir", default=None, help="model dir")
 parser.add_argument("--dtype", default="float32",
@@ -58,6 +63,7 @@ parser.add_argument("--dtype", default="float32",
 parser.add_argument("--device", default="cuda", help="cuda | cpu")
 parser.add_argument("--seed", type=int, default=0, help="random seed")
 parser.add_argument("--lr", type=float, default=1e-3, help="learning rate")
+parser.add_argument("--dropout", type=float, default=-1, help="dropout rate")
 parser.add_argument("--train_frac", type=float, default=1,
                     help="fraction of train data")
 parser.add_argument("--recon", action="store_false",
@@ -66,8 +72,12 @@ parser.add_argument("--recon_coef", default=5e-4,
                     help="reconstruction coefficient")
 parser.add_argument("--eval_every", default=1, type=int,
                     help="evaluate metric every # epochs")
+parser.add_argument("--fine_tune", default=-1, type=int,
+                    help="number of fixed layer in fine tuning")
 parser.add_argument("--no_metric", action="store_true",
                     help="do not compute metric")
+parser.add_argument("--npy", default=False, action="store_true",
+                    help="data is npy file")
 
 
 def load_test_set(data_dir, model_name, params):
@@ -115,6 +125,9 @@ def main(argv=None):
     params.model = args.model
     params.compute_dtype = args.dtype
     params.train_frac = args.train_frac
+    params.npy = args.npy
+    if args.dropout >= 0:
+        params.dropout = args.dropout
     np.random.seed(args.seed)
     if args.mode in ("train", "overfit"):
         train(args, params, data_dir, model_dir)
@@ -148,6 +161,7 @@ def train(args, params, data_dir, model_dir):
     params.recon_coef = float(args.recon_coef)
     params.eval_every = args.eval_every
     params.lr_runtime = args.lr
+    params.do_fine_tune = args.fine_tune > 0
     is_small = args.mode == "overfit"
     if is_small:
         try:

@@ -1,6 +1,7 @@
 """Detection metrics (numpy): the subset of the JAX metrics/detection.py
-that predict mode reports — COCO-style AP over an (IoU x confidence)
-threshold sweep and F1 at conf .5 / IoU .5.  No plots."""
+that darknet_r's predict mode and training report — COCO-style AP over
+an (IoU x confidence) threshold sweep, F1 at conf .5 / IoU .5, and its
+class-wise form.  No plots."""
 
 import numpy as np
 
@@ -139,4 +140,20 @@ def detect_acc(y, y_hat, params):
                                  decode_with_conf(y_hat, params),
                                  [0.5], [0.5])
     p, r = precision_and_recall(int(TP[0, 0]), int(FP[0, 0]), int(FN[0, 0]))
+    return 2 * p * r / (p + r + 1e-8)
+
+
+def detect_and_recog_acc(y, y_hat, params):
+    """Class-wise F1 at conf .5 / IoU .5: TP/FP/FN summed over the
+    classes, each counted between boxes of that class only, then one
+    F1.  darknet_r's training metric."""
+    gt = decode_with_conf(y, params)
+    pred = decode_with_conf(y_hat, params)
+    TP = FP = FN = 0
+    for c in range(params.n_classes):
+        tp, fp, fn = confusion_sweep(gt, pred, [0.5], [0.5], cls_filter=c)
+        TP += int(tp[0, 0])
+        FP += int(fp[0, 0])
+        FN += int(fn[0, 0])
+    p, r = precision_and_recall(TP, FP, FN)
     return 2 * p * r / (p + r + 1e-8)

@@ -5,12 +5,25 @@ blocks with 5 max-pools (stride 32: 448 -> 14 grid), then a bias-free
 1x1 head conv with 5*n_boxes + n_classes channels; sigmoid over the box
 part, softmax over the class part.  The forward takes NHWC and returns
 the NHWC grid, as the JAX module does.
+
+``dtype`` is the compute dtype: the input is cast to it first, the
+convs run in it on the f32 parameters cast to it, BN keeps f32
+statistics and parameters, and the head's output goes to f32 before the
+sigmoid and softmax.  In training, dropout follows the "drop" blocks
+with masks drawn from the ``generator`` the caller passes (the trainer
+owns one, seeded from ``--seed``), never from the global RNG.  Initial
+weights come from ``seed`` alone (models/init.py).
+
+`load_darknet19_npz` and `freeze_darknet` are the pretrained-weight
+loader and the fine-tuning freeze of the JAX module.
 """
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .init import init_darknet
 from .layers import ConvBNLeaky
 
 # (out_channels, kernel_size, what follows: 'mp' max-pool | 'drop' | None)
@@ -56,9 +69,11 @@ class DarkNet(nn.Module):
     ``.to()``, ``.eval()`` and ``load_state_dict`` reach them.
     """
 
-    def __init__(self, n_boxes=2, n_classes=0, dropout=0.0):
+    def __init__(self, n_boxes=2, n_classes=0, dropout=0.0,
+                 dtype=torch.float32, seed=0):
         super().__init__()
         self.n_boxes, self.n_classes = n_boxes, n_classes
+        self.dtype = dtype
         self.model = nn.Module()
         blocks = []
         in_ch = 3
@@ -73,13 +88,68 @@ class DarkNet(nn.Module):
         self.model.add_module("conv_19", nn.Conv2d(
             in_ch, 5 * n_boxes + n_classes, 1, bias=False))
         self._blocks = blocks  # plain list: not registered twice
+        init_darknet(self, seed)
 
-    def forward(self, x):
-        """x: (B, H, W, 3) NHWC -> (B, H/32, W/32, 5B+C) NHWC grid."""
-        x = x.permute(0, 3, 1, 2)  # NHWC -> channels_last NCHW view
+    def forward(self, x, generator=None):
+        """x: (B, H, W, 3) NHWC -> (B, H/32, W/32, 5B+C) NHWC grid, f32
+        (f64 for a float64 model).
+        ``generator`` (on x's device) draws the dropout masks in
+        training."""
+        dt = self.dtype
+        x = x.permute(0, 3, 1, 2).to(dt)  # NHWC -> channels_last NCHW view
         for blk, after in self._blocks:
-            x = blk(x)
+            x = blk(x, dt, generator)
             if after == "mp":
                 x = F.max_pool2d(x, 2, 2)
-        out = self.model.conv_19(x).permute(0, 2, 3, 1).float()
-        return head(out, self.n_boxes, self.n_classes)
+        out = F.conv2d(x, self.model.conv_19.weight.to(dt))
+        # the head and the loss in f32 at least
+        out = out.to(torch.promote_types(dt, torch.float32))
+        return head(out.permute(0, 2, 3, 1), self.n_boxes, self.n_classes)
+
+
+def load_darknet19_npz(model, npz_path, n_load_layer=18):
+    """Copy pretrained darknet19 weights into ``model`` in place.
+
+    npz keys are ``'{i}-<scope>/<name>:0'`` with i 0-based (layer i + 1):
+    ``kernel:0`` is a TF-format HWIO conv kernel (transposed to OIHW
+    here), ``gamma:0``/``biases:0`` the BN scale and bias,
+    ``moving_mean:0``/``moving_variance:0`` its running statistics.
+    Layers above ``n_load_layer`` are skipped (the head always trains
+    from scratch).  Counterpart of the JAX ``load_darknet19_npz``."""
+    targets = {"kernel:0": "conv_{}.weight", "gamma:0": "bn_{}.weight",
+               "biases:0": "bn_{}.bias", "moving_mean:0": "bn_{}.running_mean",
+               "moving_variance:0": "bn_{}.running_var"}
+    state = model.model.state_dict(keep_vars=True)
+    pretrained = np.load(npz_path)
+    with torch.no_grad():
+        for key in pretrained.files:
+            index_s, layer = key.split("-")
+            index = int(index_s) + 1
+            if index > n_load_layer:
+                continue
+            name = layer.split("/")[1]
+            if name not in targets:
+                raise ValueError(f"unknown pretrained tensor {key}")
+            v = pretrained[key]
+            if name == "kernel:0":
+                v = np.transpose(v, (3, 2, 0, 1))
+            tgt = state[targets[name].format(index)]
+            if tuple(tgt.shape) != v.shape:
+                raise ValueError(f"{key}: shape {v.shape}, the model's "
+                                 f"{tuple(tgt.shape)}")
+            tgt.copy_(torch.from_numpy(np.ascontiguousarray(v)))
+    return model
+
+
+def freeze_darknet(model, fine_tune):
+    """``requires_grad=False`` on every parameter of the blocks with index
+    <= ``fine_tune`` (conv_i and bn_i; the head is 19), as the
+    reference's fine-tuning loop (main.py:273-278); returns the count of
+    frozen parameters.  Their BN running statistics still update in
+    training: the blocks stay in train mode."""
+    n = 0
+    for name, p in model.model.named_parameters():
+        if int(name.split(".")[0].split("_")[1]) <= fine_tune:
+            p.requires_grad_(False)
+            n += p.numel()
+    return n

@@ -4,11 +4,12 @@ JAX models/init.py).
 The reference relies on torch's default inits: U(-1/sqrt(fan_in),
 +1/sqrt(fan_in)) for conv and linear weights and biases (kaiming-uniform
 with a = sqrt(5)), and 0.1 * N(0, 1) for the capsule route weights
-(reference models.py:57-58).  `init_capsulenet` draws all of them from
-one ``torch.Generator`` seeded from ``seed``, so a model's initial
-weights depend on ``--seed`` and on nothing else.  The JAX package's
-draws (jax.random) differ from torch's; the tests carry weights across
-instead of comparing inits.
+(reference models.py:57-58).  `init_capsulenet` and `init_darknet`
+draw all of them from one ``torch.Generator`` seeded from ``seed``, so
+a model's initial weights depend on ``--seed`` and on nothing else;
+BatchNorm starts at scale 1, bias 0, mean 0 and variance 1.  The JAX
+package's draws (jax.random) differ from torch's; the tests carry
+weights across instead of comparing inits.
 """
 
 import math
@@ -42,4 +43,17 @@ def init_capsulenet(model, seed=0):
             torch_default_(module, g)
         elif name.endswith("traffic_sign_capsules"):
             route_weights_(module.route_weights, g)
+    return model
+
+
+def init_darknet(model, seed=0):
+    """Every conv weight of a DarkNet from ``torch.Generator(seed)``, in
+    registration order (conv_1 .. conv_19); BatchNorm reset to its
+    defaults."""
+    g = torch.Generator().manual_seed(int(seed))
+    for module in model.modules():
+        if isinstance(module, nn.Conv2d):
+            torch_default_(module, g)
+        elif isinstance(module, nn.BatchNorm2d):
+            module.reset_parameters()
     return model

@@ -1,9 +1,49 @@
 """Shared building blocks (PyTorch port of the JAX models/layers.py):
-DarkNet's conv+BN+leaky block and the capsule reconstruction decoder."""
+DarkNet's conv+BN+leaky block, with the flax BatchNorm and dropout it
+trains with, and the capsule reconstruction decoder."""
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def batch_norm(x, bn, training):
+    """``bn`` (an ``nn.BatchNorm2d``) over NCHW x as flax's BatchNorm runs
+    it: the statistics, scale, bias and running buffers in f32 whatever
+    x's dtype, the output in x's dtype.
+
+    In training the running variance takes the BIASED batch variance, as
+    flax stores it (``nn.BatchNorm2d`` stores the unbiased one).
+    ``F.batch_norm`` updates copies of the buffers (autograd keeps them,
+    so they may not change after) to rv' = (1 - m) rv + m n/(n-1) var
+    for n values per channel; the buffer then takes rv' - (rv' - (1 - m)
+    rv) / n = (1 - m) rv + m var.
+    """
+    if not training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    m = bn.momentum
+    if m is None:  # nn.BatchNorm2d's cumulative average: reads the count
+        m = 1.0 / (float(bn.num_batches_tracked) + 1.0)
+    mean, var = bn.running_mean.clone(), bn.running_var.clone()
+    y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, m, bn.eps)
+    with torch.no_grad():
+        n = x.numel() // x.shape[1]
+        bn.running_mean.copy_(mean)
+        bn.running_var.mul_((1.0 - m) / n).add_(var, alpha=1.0 - 1.0 / n)
+        bn.num_batches_tracked.add_(1)
+    return y
+
+
+def dropout(x, p, generator):
+    """Flax's dropout: keep each value with probability 1 - p, drawn from
+    ``generator`` (on x's device), and scale the kept ones by 1/(1 - p)."""
+    keep = 1.0 - p
+    # in x's memory format: a contiguous (NCHW) mask would turn the
+    # result, and every later activation, NCHW
+    mask = torch.empty_like(x, dtype=torch.bool).bernoulli_(
+        keep, generator=generator)
+    return torch.where(mask, x / keep, 0.0)
 
 
 class ConvBNLeaky(nn.Module):
@@ -11,29 +51,42 @@ class ConvBNLeaky(nn.Module):
 
     A bias-free ``nn.Conv2d`` with symmetric padding (1 for k=3, 0 for
     k=1), then ``nn.BatchNorm2d(eps=1e-5, momentum=0.01)`` (torch
-    momentum 0.01 is flax momentum 0.99, as the JAX block uses),
-    LeakyReLU(0.1) and dropout.
-    Children are named ``conv{suffix}``/``bn{suffix}``/``drop{suffix}``
-    with ``suffix = _{name_idx}``, the reference state_dict names.
-    Works on NCHW tensors, like every ``nn.Conv2d``.
+    momentum 0.01 is flax momentum 0.99, as the JAX block uses) run by
+    `batch_norm`, LeakyReLU(0.1) and, in training, `dropout`.
+    Children are named ``conv{suffix}``/``bn{suffix}`` with ``suffix =
+    _{name_idx}``, the reference state_dict names.  Works on NCHW
+    tensors, like every ``nn.Conv2d``.
     """
 
     def __init__(self, in_channels, features, kernel=3, dropout=0.0,
                  name_idx=None):
         super().__init__()
         self.suffix = f"_{name_idx}" if name_idx is not None else ""
+        self.dropout = dropout
         self.add_module("conv" + self.suffix, nn.Conv2d(
             in_channels, features, kernel, padding=kernel // 2, bias=False))
         self.add_module("bn" + self.suffix, nn.BatchNorm2d(
             features, eps=1e-5, momentum=0.01))
-        self.add_module("drop" + self.suffix,
-                        nn.Dropout(dropout) if dropout > 0 else nn.Identity())
 
-    def forward(self, x):
-        x = getattr(self, "conv" + self.suffix)(x)
-        x = getattr(self, "bn" + self.suffix)(x)
+    def forward(self, x, dtype=torch.float32, generator=None):
+        """The conv in ``dtype`` on the f32 weight cast to it, BN (f32
+        statistics, output in ``dtype``), leaky and dropout in ``dtype``.
+        Dropout, in training only, draws from ``generator``."""
+        conv = getattr(self, "conv" + self.suffix)
+        bn = getattr(self, "bn" + self.suffix)
+        # the mode is the children's: DarkNet registers them, not the block
+        training = bn.training
+        x = F.conv2d(x.to(dtype), conv.weight.to(dtype),
+                     padding=conv.padding)
+        x = batch_norm(x, bn, training)
         x = F.leaky_relu(x, 0.1)
-        return getattr(self, "drop" + self.suffix)(x)
+        if training and self.dropout > 0:
+            if generator is None:
+                raise ValueError("ConvBNLeaky: training with dropout draws "
+                                 "its masks from a torch.Generator; none "
+                                 "was given")
+            x = dropout(x, self.dropout, generator)
+        return x
 
 
 class ReconDecoder(nn.Sequential):

@@ -1,7 +1,9 @@
-"""Host-side (numpy) box geometry: the subset of the JAX ops/boxes.py
-that the detector's data, decode and metrics use."""
+"""Box geometry, the subset of the JAX ops/boxes.py that the detector
+uses: host-side (numpy) helpers for its data, decode and metrics, and
+the device-side (torch) conversion and IoU of its loss."""
 
 import numpy as np
+import torch
 
 
 def xy_to_cwh(box_xy):
@@ -80,3 +82,38 @@ def y_to_boxes_vec(y, params, image_hw=None, conf_th=0.5):
     else:
         classes = None
     return image_indices, xy, classes
+
+
+# ---------------------------------------------------------------------------
+# Device tier (torch, fixed shapes): the loss-side box helpers
+
+
+def cwh_to_xy_grid(cwh, img_size, n_grid):
+    """Grid-frame center boxes (..., 4) -> corner boxes (..., 4).
+
+    The loss-side conversion: xc, yc scaled by the grid cell's size and
+    w, h by the image's, WITHOUT the cell's row/col offset.  A cell's
+    prediction and target share this frame, so their IoU is unchanged.
+    """
+    grid_size = 1.0 * img_size / n_grid
+    xc = cwh[..., 0] * grid_size
+    yc = cwh[..., 1] * grid_size
+    half_w = cwh[..., 2] * img_size / 2
+    half_h = cwh[..., 3] * img_size / 2
+    return torch.stack([xc - half_w, yc - half_h, xc + half_w, yc + half_h],
+                       dim=-1)
+
+
+def iou_xy(boxes_a, boxes_b):
+    """IoU between corner boxes, broadcast over the leading dims:
+    (..., A, 4) x (..., B, 4) -> (..., A, B).  0/0 (two empty boxes)
+    gives NaN, as the JAX function does."""
+    a = boxes_a[..., :, None, :]
+    b = boxes_b[..., None, :, :]
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = (rb - lt).clamp_min(0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter / (area_a + area_b - inter)

@@ -1,5 +1,5 @@
 """Training and evaluation (counterpart of the JAX train/driver.py), for
-the capsule classifier.
+the capsule classifier and the darknet_r detector.
 
 Per epoch, as the reference's main.py:42-217 and the JAX driver: a
 shuffle from the global ``np.random`` stream, ``np.array_split``
@@ -7,15 +7,23 @@ batching, a train epoch, an eval epoch, the plateau LR step on the
 TRAIN loss, the scalars (train_loss / eval_loss / train_metric /
 eval_metric), last/best checkpoints into ``model_dir + str(train_frac)``,
 the ``.npy`` loss and metric histories, and the metric on at most 1000
-subsampled rows.
+subsampled rows (`METRICS`: recog_acc for capsule,
+detect_and_recog_acc for darknet_r).  The detector's ``avg_iou`` (the
+loss's aux) is kept per epoch as ``last_avg_iou``.
 
-The dataset stays resident on the device: a shuffle is one permuted
+The dataset stays resident on the device (in bf16 under bf16, whose
+first op casts to it, but for the capsule reconstruction loss, which
+reads the crops): a shuffle is one permuted
 gather per batch on the device, with the same ``np.random.permutation``
 and ``np.array_split`` use as the JAX driver's device-data path, so the
 same ``np.random.seed`` gives both frameworks the same batches.  The
 losses stay on the device until one fetch per epoch; nothing syncs the
-host per batch.  Not ported: --mesh, --stream, --scan_epoch,
---async_ckpt, --ckpt_every, --fine_tune.
+host per batch.  The detector's dropout masks come from a
+``torch.Generator`` on the device that the Trainer owns, seeded from
+``seed``.  With ``params.do_fine_tune`` the darknet19 npz is loaded
+(when present) and the blocks up to ``params.fine_tune`` are frozen.
+Not ported: --mesh, --stream, --scan_epoch, --async_ckpt,
+--ckpt_every.
 """
 
 import os
@@ -28,13 +36,17 @@ from ..data import loader as data_loader
 from ..device import compute_dtype, resolve_device
 from ..losses import LossConfig
 from ..metrics.classification import recog_acc
-from ..models import CapsuleNet
+from ..metrics.detection import detect_and_recog_acc
+from ..models import CapsuleNet, DarkNet
+from ..models.darknet import freeze_darknet, load_darknet19_npz
 from . import checkpoint as ckpt
 from .plateau import ReduceLROnPlateau
 from .steps import eval_step, make_optimizer, train_step
 from .summary import summarize
 
-TRAINED_MODELS = ("capsule",)
+# each trained model's epoch metric (JAX metrics/__init__.py:15-25)
+METRICS = {"capsule": recog_acc, "darknet_r": detect_and_recog_acc}
+TRAINED_MODELS = tuple(METRICS)
 
 
 def _bounds(n, n_batch):
@@ -44,9 +56,24 @@ def _bounds(n, n_batch):
     return list(zip(np.concatenate([[0], ends[:-1]]).tolist(), ends.tolist()))
 
 
+def build_model(params, seed, device):
+    """The model of ``params.model`` in ``params.compute_dtype``, its
+    weights from ``seed``, on ``device``."""
+    dtype = compute_dtype(params.get("compute_dtype", "float32"))
+    if params.model == "capsule":
+        model = CapsuleNet(n_classes=int(params.n_classes), dtype=dtype,
+                           seed=seed)
+    else:
+        model = DarkNet(n_boxes=int(params.n_boxes),
+                        n_classes=int(params.n_classes),
+                        dropout=float(params.get("dropout", 0.0)),
+                        dtype=dtype, seed=seed)
+    return model.to(device)
+
+
 class Trainer:
-    """Owns the model, the optimizer and the device-resident data of one
-    experiment."""
+    """Owns the model, the optimizer, the dropout generator and the
+    device-resident data of one experiment."""
 
     def __init__(self, params, seed=0, device="cuda", verbose=True):
         if params.model not in TRAINED_MODELS:
@@ -56,31 +83,64 @@ class Trainer:
         self.params = params
         self.loss_cfg = LossConfig.from_params(params)
         self.model_name = params.model
-        self.model = CapsuleNet(
-            n_classes=int(params.n_classes),
-            dtype=compute_dtype(params.get("compute_dtype", "float32")),
-            seed=seed).to(self.device)
+        self.metric = METRICS[self.model_name]
+        self.model = build_model(params, seed, self.device)
+        self.generator = None
+        if isinstance(self.model, DarkNet):
+            self.generator = torch.Generator(device=self.device)
+            self.generator.manual_seed(int(seed))
+        if params.get("do_fine_tune", False):
+            self._fine_tune(int(params.get("fine_tune", -1) or -1))
         if verbose:
             summarize(self.model, title=self.model_name)
         self.opt = make_optimizer(self.model)
+        # under bf16 the images stay on the device in bf16: the model's
+        # first op casts to it, so the values are the same, rounded once
+        # (not for the capsule reconstruction loss, which reads x in f32)
+        reads_x = self.model_name == "capsule" and self.loss_cfg.recon
+        self._x_dtype = (torch.bfloat16 if self.model.dtype == torch.bfloat16
+                         and not reads_x else torch.float32)
+        self.last_avg_iou = 0.0
         self._data = {}
 
+    def _fine_tune(self, fine_tune):
+        """The JAX driver's fine-tune branch (driver.py:98-114): the
+        pretrained npz when present, then the freeze."""
+        npz = self.params.get("pretrained_weights", "./darknet19_weights.npz")
+        if os.path.exists(npz):
+            load_darknet19_npz(self.model, npz, n_load_layer=18)
+            print(f"Load weights from {npz}")
+        else:
+            print(f"[fine_tune] pretrained weights {npz!r} not found; "
+                  "training from scratch")
+        if fine_tune > 0:
+            freeze_darknet(self.model, fine_tune)
+
     def _resident(self, tag, x, y):
-        """(x f32, y int64) of a split on the device, uploaded once."""
+        """(x, y) of a split on the device, uploaded once: x in the
+        dataset's dtype, y int64 labels or f32 grids."""
         key = (tag, x.shape, y.shape)
         if key not in self._data:
             for stale in [k for k in self._data if k[0] == tag]:
                 del self._data[stale]
+            y = np.asarray(y)
+            y = y.astype(np.float32 if y.dtype.kind == "f" else np.int64)
             self._data[key] = (
-                torch.from_numpy(np.asarray(x, np.float32)).to(self.device),
-                torch.from_numpy(np.asarray(y, np.int64)).to(self.device))
+                torch.from_numpy(np.asarray(x, np.float32)).to(
+                    self.device, self._x_dtype),
+                torch.from_numpy(y).to(self.device))
         return self._data[key]
 
-    def _epoch_metric(self, losses, y_hats, y, metric_on):
-        """Mean batch loss (one fetch) and recog_acc on <= 1000 rows, with
-        the reference's np.random use (a choice only when the metric is
-        on and there are more rows)."""
-        avg_loss = float(torch.stack(losses).mean())
+    def _epoch_metric(self, losses, ious, y_hats, y, metric_on):
+        """Mean batch loss and avg_iou (one fetch) and the model's metric
+        on <= 1000 rows, with the reference's np.random use (a choice only
+        when the metric is on and there are more rows)."""
+        means = [torch.stack(losses).mean()]
+        if ious:
+            means.append(torch.stack(ious).mean())
+        means = torch.stack(means).tolist()
+        avg_loss = means[0]
+        self.last_avg_iou = means[1] if ious else 0.0
         metric_score = -1
         if metric_on:
             y_hat = torch.cat(y_hats).float().cpu().numpy()
@@ -88,7 +148,7 @@ class Trainer:
             if n > config.max_metric_samples:
                 i = np.random.choice(n, config.max_metric_samples).astype(int)
                 y, y_hat = y[i], y_hat[i]
-            metric_score = recog_acc(y, y_hat, self.params)
+            metric_score = self.metric(y, y_hat, self.params)
         return avg_loss, metric_score
 
     def train_epoch(self, x, y, lr, metric_on=True):
@@ -100,14 +160,17 @@ class Trainer:
         perm = np.random.permutation(n)
         perm_dev = torch.from_numpy(perm).to(self.device)
         self.model.train()
-        losses, y_hats = [], []
+        losses, ious, y_hats = [], [], []
         for lo, hi in _bounds(n, n_batch):
             idx = perm_dev[lo:hi]
-            loss, y_hat = train_step(self.model, self.opt, x_dev[idx],
-                                     y_dev[idx], lr, self.loss_cfg)
+            loss, y_hat, aux = train_step(
+                self.model, self.opt, x_dev[idx], y_dev[idx], lr,
+                self.loss_cfg, self.model_name, self.generator)
             losses.append(loss)
             y_hats.append(y_hat)
-        return self._epoch_metric(losses, y_hats, np.asarray(y)[perm],
+            if "avg_iou" in aux:
+                ious.append(aux["avg_iou"])
+        return self._epoch_metric(losses, ious, y_hats, np.asarray(y)[perm],
                                   metric_on)
 
     def eval_epoch(self, x, y, metric_on=True):
@@ -116,13 +179,17 @@ class Trainer:
         n_batch = (n + self.params.batch_size - 1) // self.params.batch_size
         x_dev, y_dev = self._resident("eval", x, y)
         self.model.eval()
-        losses, y_hats = [], []
+        losses, ious, y_hats = [], [], []
         for lo, hi in _bounds(n, n_batch):
-            loss, y_hat = eval_step(self.model, x_dev[lo:hi], y_dev[lo:hi],
-                                    self.loss_cfg)
+            loss, y_hat, aux = eval_step(self.model, x_dev[lo:hi],
+                                         y_dev[lo:hi], self.loss_cfg,
+                                         self.model_name)
             losses.append(loss)
             y_hats.append(y_hat)
-        return self._epoch_metric(losses, y_hats, np.asarray(y), metric_on)
+            if "avg_iou" in aux:
+                ious.append(aux["avg_iou"])
+        return self._epoch_metric(losses, ious, y_hats, np.asarray(y),
+                                  metric_on)
 
     # -- checkpoint glue ---------------------------------------------------
 

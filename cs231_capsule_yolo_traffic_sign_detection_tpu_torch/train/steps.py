@@ -1,52 +1,65 @@
 """Train and eval steps (counterpart of the JAX train/steps.py).
 
-`train_step` is one forward with the reconstruction, the loss, the
-backward (K4 on a card) and one Adam update.  optax's ``scale_by_adam``
-with ``-lr`` applied, as the JAX step does it, is torch's Adam with
-betas (0.9, 0.999) and eps 1e-8.  The learning rate is set on the
-optimizer before each step, from the plateau schedule.  Master
-parameters and Adam moments stay f32 whatever the compute dtype: under
-bf16 only the convs and the decoder compute in bf16, and K3/K4 run in
-their bf16-storage mode.  Nothing here syncs the host with the card.
+`train_step` is one forward (with the reconstruction for the capsule
+classifier, with dropout from the trainer's generator for the
+detector), the model's loss from `LOSS_REGISTRY`, the backward (K4 on a
+card for the capsule classifier) and one Adam update.  optax's
+``scale_by_adam`` with ``-lr`` applied, as the JAX step does it, is
+torch's Adam with betas (0.9, 0.999) and eps 1e-8.  The learning rate
+is set on the optimizer before each step, from the plateau schedule.
+Master parameters and Adam moments stay f32 whatever the compute dtype.
+Frozen parameters (``requires_grad=False``, fine-tuning) stay out of
+Adam, as in the reference.  The loss, the outputs and the loss's aux
+(``avg_iou`` for the detector) come back as tensors on the device:
+nothing here syncs the host with the card.
 """
 
 import torch
 
-from ..losses import capsule_loss
+from ..losses import capsule_loss, dark_loss
+
+LOSS_REGISTRY = {"capsule": capsule_loss, "darknet_r": dark_loss}
 
 
 def make_optimizer(model, lr=1e-3):
-    """Adam with torch defaults (the reference's, main.py:280)."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8)
+    """Adam with torch defaults (the reference's, main.py:280) over the
+    parameters that train."""
+    return torch.optim.Adam([p for p in model.parameters()
+                             if p.requires_grad], lr=lr,
+                            betas=(0.9, 0.999), eps=1e-8)
 
 
-def loss_and_scores(model, x, y, loss_cfg):
-    """Forward (with the reconstruction when the loss wants it) and the
-    loss; returns (loss, scores)."""
-    if loss_cfg.recon:
+def loss_and_scores(model, x, y, loss_cfg, model_name, generator=None):
+    """Forward (with the reconstruction when the loss wants it; dropout
+    masks from ``generator``) and the model's loss; returns (loss,
+    outputs, aux)."""
+    loss_fn = LOSS_REGISTRY[model_name]
+    if model_name == "capsule" and loss_cfg.recon:
         scores, recon = model(x, y, recon=True)
-        loss, _ = capsule_loss(scores, y, loss_cfg, x, recon)
+        loss, aux = loss_fn(scores, y, loss_cfg, x, recon)
     else:
-        scores = model(x)
-        loss, _ = capsule_loss(scores, y, loss_cfg)
-    return loss, scores
+        scores = (model(x) if generator is None
+                  else model(x, generator=generator))
+        loss, aux = loss_fn(scores, y, loss_cfg)
+    return loss, scores, aux
 
 
-def train_step(model, opt, x, y, lr, loss_cfg):
-    """One Adam step on the batch (x NHWC f32, y int labels); returns the
-    loss (a 0-d tensor) and the scores, both detached, on x's device."""
+def train_step(model, opt, x, y, lr, loss_cfg, model_name, generator=None):
+    """One Adam step on the batch (x NHWC, y labels or grids); returns the
+    loss (a 0-d tensor) and the outputs, detached, and the aux (no
+    gradient flows into it), on x's device."""
     for group in opt.param_groups:
         group["lr"] = lr
     opt.zero_grad(set_to_none=True)
-    loss, scores = loss_and_scores(model, x, y, loss_cfg)
+    loss, scores, aux = loss_and_scores(model, x, y, loss_cfg, model_name,
+                                        generator)
     loss.backward()
     opt.step()
-    return loss.detach(), scores.detach()
+    return loss.detach(), scores.detach(), aux
 
 
-def eval_step(model, x, y, loss_cfg):
-    """Loss and scores on the batch, with the reconstruction as in
+def eval_step(model, x, y, loss_cfg, model_name):
+    """Loss, outputs and aux on the batch, with the reconstruction as in
     training (the JAX eval does the same), no gradient."""
     with torch.no_grad():
-        return loss_and_scores(model, x, y, loss_cfg)
+        return loss_and_scores(model, x, y, loss_cfg, model_name)

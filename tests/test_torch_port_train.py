@@ -258,8 +258,8 @@ def test_train_step_grads_match_jax():
 
     model = torch_capsulenet(variables, 43).train()
     cfg = losses.LossConfig.from_params(Params(**TRAIN))
-    loss, _ = steps.loss_and_scores(model, torch.from_numpy(x),
-                                    torch.from_numpy(y), cfg)
+    loss, _, _ = steps.loss_and_scores(model, torch.from_numpy(x),
+                                       torch.from_numpy(y), cfg, "capsule")
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(loss_w), rtol=1e-5)
     for name, p in model.named_parameters():
@@ -284,8 +284,9 @@ def test_adam_steps_match_jax():
         x, y = _batch(20 + i)
         state, loss_w, _, _ = step(state, jnp.asarray(x), jnp.asarray(y),
                                    1e-3)
-        loss, _ = steps.train_step(model, opt, torch.from_numpy(x),
-                                   torch.from_numpy(y), 1e-3, cfg)
+        loss, _, _ = steps.train_step(model, opt, torch.from_numpy(x),
+                                      torch.from_numpy(y), 1e-3, cfg,
+                                      "capsule")
         np.testing.assert_allclose(loss.item(), float(loss_w), rtol=1e-4)
     want = _grads_as_state_dict(state.params)
     for name, p in model.named_parameters():
@@ -302,9 +303,9 @@ def test_bf16_keeps_master_params_and_moments_f32():
     model = CapsuleNet(43, dtype=torch.bfloat16, seed=0).train()
     opt = steps.make_optimizer(model)
     x, y = _batch(8, n=2)
-    loss, scores = steps.train_step(
+    loss, scores, _ = steps.train_step(
         model, opt, torch.from_numpy(x), torch.from_numpy(y), 1e-3,
-        losses.LossConfig.from_params(Params(**TRAIN)))
+        losses.LossConfig.from_params(Params(**TRAIN)), "capsule")
     assert torch.isfinite(loss) and scores.dtype == torch.float32
     for p in model.parameters():
         assert p.dtype == torch.float32 and p.grad.dtype == torch.float32

@@ -68,3 +68,30 @@ def torch_darknet(variables_np, n_boxes, n_classes, model_name="darknet_r"):
     model.load_state_dict(
         jax_variables_to_state_dict(variables_np, model_name), strict=True)
     return model.eval()
+
+
+def write_darknet19_npz(path, seed=7):
+    """A synthetic pretrained npz in the TF-format key layout both
+    loaders read ('{i}-scope/kernel:0' HWIO kernels, biases / gamma /
+    moving_mean / moving_variance per layer, layers 1-18), as
+    tests/test_convergence_parity.py writes it; returns its arrays."""
+    from cs231_capsule_yolo_traffic_sign_detection_tpu.models.darknet import (
+        DARKNET_LAYERS)
+
+    rng = np.random.RandomState(seed)
+    arrs = {}
+    in_c = 3
+    for i, (out_c, k, _) in enumerate(DARKNET_LAYERS[:18]):
+        arrs[f"{i}-scope/kernel:0"] = (
+            0.05 * rng.randn(k, k, in_c, out_c)).astype(np.float32)
+        arrs[f"{i}-scope/biases:0"] = (
+            0.1 * rng.randn(out_c)).astype(np.float32)
+        arrs[f"{i}-scope/gamma:0"] = (
+            1.0 + 0.1 * rng.randn(out_c)).astype(np.float32)
+        arrs[f"{i}-scope/moving_mean:0"] = (
+            0.1 * rng.randn(out_c)).astype(np.float32)
+        arrs[f"{i}-scope/moving_variance:0"] = (
+            0.5 + rng.rand(out_c)).astype(np.float32)
+        in_c = out_c
+    np.savez(path, **arrs)
+    return arrs
