@@ -5,8 +5,8 @@
 
 Run from the repository root on a machine with a card and nvcc.  Phases
 (any failure ends the run with a non-zero exit; nothing is caught; each
-path of phases 5, 8 and 11 runs with all four kernels' launch counts set
-to 0 just before it, and is checked on all four just after):
+path of phases 5, 8, 11, 13 and 15-17 runs with all four kernels' launch
+counts set to 0 just before it, and is checked on all four just after):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the kernels (csrc/*.cu -> build/kernels/) and print the time;
@@ -85,7 +85,30 @@ to 0 just before it, and is checked on all four just after):
 14. timings: the darknet_r train step (forward with dropout, dark_loss,
    backward, Adam) at batch 32, f32 and bf16, ms and img/s beside its
    operation bound, with the profile of the same calls (conv forward,
-   dgrad, wgrad, BN, pool, leaky, dropout, Adam, other).
+   dgrad, wgrad, BN, pool, leaky, dropout, Adam, other);
+15. the cnn classifier's training at full width through
+   `train_and_evaluate` (experiments/cnn/params.json: 32 px, 43 classes,
+   batch 64, dropout 0.5), 512/128 synthetic crops, 2 epochs, f32 then
+   bf16: no kernel may launch, the train loss must fall, after one step
+   every gradient is finite and non-zero (but the two conv biases in
+   front of a train-mode BN, whose gradient is rounding noise), and
+   `class_pred` reads the written last.ckpt back; the step's ms and
+   img/s;
+16. the two-stage pipeline through `dark_class_pred` (the host
+   composition), as the CLI's --combine calls it: phase 5's darknet_r
+   over its 64 scenes, then phase 8's CapsuleNet and phase 15's
+   trained ConvNet on the crops, f32 and bf16: K2 once and K1 four
+   times per detector batch, K3 once per 64 crops (capsule) or never
+   (cnn), K4 never; crops found; the combined grid's detector channels
+   equal `dark_pred`'s y_hat and its class channels `class_pred` on the
+   same crops; frames/s end to end and the time by stage (detector,
+   crops, classifier, combine);
+17. K3 at the fused path's batch, 32 frames x 16 crops = 512, against
+   its plain version after a NaN fill of shared memory, and its time;
+   then the fused pipeline (`dark_class_pred(device_crop=True)`,
+   max_crops 16), f32 and bf16: K3 once per detector batch (capsule),
+   frames/s, and class scores within K3's bands of the same composition
+   with the plain routing.
 
 The line before the last is the JSON ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -110,9 +133,10 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.metrics import (
     classification as clsm, detection as det)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
-    DARKNET_LAYERS, CapsuleNet, DarkNet)
+    DARKNET_LAYERS, CapsuleNet, ConvNet, DarkNet)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
-    _build, capsule as caps, decode, input_stage as ist, pool, routing)
+    _build, boxes as box_ops, capsule as caps, crop, decode,
+    input_stage as ist, pool, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
     checkpoint as ckpt, driver, steps)
 
@@ -144,6 +168,10 @@ TRAIN_EPOCHS, TRAIN_CROPS, EVAL_CROPS = 2, 512, 128
 # the detector's training slice: 2 epochs over the JAX fallback's 64/16
 # scenes at 448 px (loader._SYNTH_FULL["detection"])
 DARK_TRAIN_SCENES, DARK_EVAL_SCENES = 64, 16
+# the fused two-stage path's static cap: boxes classified per frame
+MAX_CROPS = 16
+# the card's name and power limit (nvidia-smi), printed beside each time
+SMI = "card not read yet"
 # kernel-name substrings for the profiles' groups, first match wins
 GROUPS = (("routing_bwd (K4)", ("routing_bwd_sweep", "bwd_prep_kernel",
                                 "bwd_finish_kernel")),
@@ -156,6 +184,17 @@ GROUPS = (("routing_bwd (K4)", ("routing_bwd_sweep", "bwd_prep_kernel",
           ("layout", ("nchwtonhwc", "nhwctonchw")),
           ("conv (cuDNN)", ("conv", "gemm", "xmma", "cudnn", "cutlass",
                             "sm90", "implicit", "fprop", "nhwc", "nchw")))
+# the cnn train step: BN and pooling before the convs, as DARK_GROUPS
+# (cuDNN's convs and cuBLAS's dense layers share kernel-name parts)
+CNN_GROUPS = (("Adam", ("adam", "multi_tensor_apply")),
+              ("dropout mask", ("bernoulli",)),
+              ("BN", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+              ("pool", ("max_pool", "maxpool", "pooling")),
+              ("leaky", ("leaky",)),
+              ("conv, dense (cuDNN, cuBLAS)", (
+                  "conv", "gemm", "gemv", "xmma", "cudnn", "cublas",
+                  "cutlass", "sm90", "implicit", "fprop", "dgrad", "wgrad",
+                  "splitk", "winograd", "fft")))
 # the detector's train step: cuDNN's BN and pooling kernels carry
 # "cudnn"/"nhwc" in their names, so they come before the convs
 DARK_GROUPS = (("Adam", ("adam", "multi_tensor_apply")),
@@ -1204,14 +1243,301 @@ def time_dark_train_step(params, x_np, y_np):
     return out
 
 
+def cnn_params(dtype):
+    """The cnn classifier as in experiments/cnn/params.json (32 px, 43
+    classes, batch 64, dropout 0.5), 2 epochs at lr 1e-3, as the CLI's
+    train mode sets it."""
+    p = Params(os.path.join(HERE, "experiments", "cnn", "params.json"),
+               model="cnn", n_epochs=TRAIN_EPOCHS, lr_runtime=1e-3,
+               eval_every=1, train_frac=1, summary=False, compute_dtype=dtype)
+    require((p.batch_size, p.n_classes, p.dropout) == (CAPS_BATCH, 43, 0.5),
+            "cnn config")
+    return p
+
+
+def check_cnn_grads(params, x, y):
+    """Phase 15, on one batch: after a step every gradient is finite and
+    non-zero (but the two conv biases in front of a train-mode BN, whose
+    gradient is 0 but for rounding), every parameter finite."""
+    cfg = losses.LossConfig.from_params(params)
+    model = ConvNet(43, dropout=0.5,
+                    dtype=getattr(torch, params.compute_dtype),
+                    seed=0).cuda().train()
+    opt = steps.make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    loss, _, _ = steps.train_step(model, opt, x, y, 1e-3, cfg, "cnn", gen)
+    named = dict(model.named_parameters())
+    # the biases' noise, a share of their weight's largest gradient: f32
+    # rounding, or bf16 rounding of the BN backward's output
+    noise = 1e-3 if params.compute_dtype == "float32" else 5e-2
+    for name, p in named.items():
+        g = p.grad
+        require(torch.isfinite(g).all(), f"gradient of {name} not finite")
+        if name in ("cnn.0.bias", "cnn.4.bias"):
+            w = named[name[:-4] + "weight"].grad.abs().max().item()
+            require(g.abs().max().item() <= noise * w,
+                    f"{name}: gradient {g.abs().max().item()} beside its "
+                    f"weight's {w}")
+        else:
+            require(g.abs().max() > 0, f"gradient of {name} all zero")
+        require(torch.isfinite(p).all(), f"{name} not finite after a step")
+    print(f"[cnn_train] {params.compute_dtype} one step on a batch of "
+          f"{CAPS_BATCH}: loss {loss.item()}; all {len(named)} gradients "
+          "finite, non-zero but the two conv biases before BN (rounding "
+          f"noise, at most {noise} of their weights')")
+
+
+def run_cnn_train_slice(root):
+    """Phase 15: the cnn classifier through train_and_evaluate, f32 then
+    bf16; the step's time.  Returns the f32 run's checkpoint dir."""
+    n_train = -(-TRAIN_CROPS // CAPS_BATCH)
+    n_eval = -(-EVAL_CROPS // CAPS_BATCH)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        params = cnn_params(dtype)
+        model_dir = os.path.join(root, dtype)
+        os.makedirs(model_dir, exist_ok=True)
+        np.random.seed(0)
+        reset_launches()
+        t0 = time.perf_counter()
+        driver.train_and_evaluate(params, os.path.join(root, "nodata"),
+                                  model_dir, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        losses_tr = np.load(os.path.join(model_dir, "losses_tr.npy"))
+        print(f"[cnn_train] {dtype}: train_and_evaluate, {TRAIN_EPOCHS} "
+              f"epochs of {n_train} train + {n_eval} eval batches of "
+              f"{CAPS_BATCH}, in {wall:.3f} s (host clock, init, data and "
+              f"checkpoints included); launches {launches}; train losses "
+              f"{losses_tr.tolist()}")
+        require(sum(launches.values()) == 0,
+                f"a kernel launched during cnn training: {launches}")
+        require(np.isfinite(losses_tr).all() and losses_tr[-1] < losses_tr[0],
+                f"{dtype}: the train loss did not fall: {losses_tr}")
+        x, y, _, _ = loader.synthetic_dataset("cnn", params, CAPS_BATCH, 0)
+        check_cnn_grads(params, torch.from_numpy(x).cuda().to(
+            getattr(torch, dtype)), torch.from_numpy(y).cuda())
+        y_hat, _ = predict.class_pred(x, model_dir, params, "last",
+                                      device="cuda")
+        require(y_hat.shape == (CAPS_BATCH, 43) and np.isfinite(y_hat).all(),
+                f"{dtype}: scores from the trained last.ckpt")
+        print(f"[cnn_train] {dtype}: class_pred restored last.ckpt from "
+              f"{model_dir}{params.train_frac}: logits finite, "
+              f"{y_hat.shape}, accuracy on the train batch "
+              f"{float((y_hat.argmax(1) == y).mean())}")
+        # the train step on device-resident crops
+        model = ConvNet(43, dropout=0.5, dtype=getattr(torch, dtype),
+                        seed=0).cuda().train()
+        opt = steps.make_optimizer(model)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        cfg = losses.LossConfig.from_params(params)
+        xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+        ms = time_ms(lambda: steps.train_step(model, opt, xd, yd, 1e-3, cfg,
+                                              "cnn", gen), iters=20)
+        print(f"[time] cnn train step (forward with dropout, loss, backward,"
+              f" Adam) batch {CAPS_BATCH} {dtype}: {ms:.3f} ms = "
+              f"{CAPS_BATCH / ms * 1e3:.1f} img/s ({SMI})")
+        profile_ms(lambda: steps.train_step(model, opt, xd, yd, 1e-3, cfg,
+                                            "cnn", gen), ms, groups=CNN_GROUPS)
+        out[dtype] = model_dir
+    return out["float32"]
+
+
+def two_stage_params(classifier, dtype):
+    """darknet_r's and the classifier's params as the CLI's --combine
+    loads them (experiments/*/params.json, the same --dtype)."""
+    return (Params(os.path.join(HERE, "experiments", "darknet_r",
+                                "params.json"), model="darknet_r",
+                   batch_size=BATCH, compute_dtype=dtype),
+            Params(os.path.join(HERE, "experiments", classifier,
+                                "params.json"), model=classifier,
+                   compute_dtype=dtype, train_frac=1))
+
+
+def two_stage_launches(n_frames, n_k3):
+    """What the two-stage paths launch: K2 once and K1 four times per
+    detector batch, K3 ``n_k3`` times, K4 never."""
+    n_batches = -(-n_frames // BATCH)
+    return {"input_stage": n_batches, "pool_leaky": 4 * n_batches,
+            "routing": n_k3, "routing_bwd": 0}
+
+
+def run_two_stage_host(frames, dark_dir, classifiers):
+    """Phase 16: dark_class_pred (the host composition) as the CLI calls
+    it, capsule and cnn, f32 and bf16: launch counts, the combined grid
+    against its parts run alone, frames/s and the time by stage."""
+    frames = list(frames)
+    out = {}
+    for name, cdir in classifiers.items():
+        for dtype in ("float32", "bfloat16"):
+            dparams, cparams = two_stage_params(name, dtype)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y_hat, (idx, bx, classes) = predict.dark_class_pred(
+                frames, dark_dir, dparams, cdir, cparams, "last",
+                device="cuda")
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            n = len(idx)
+            n_k3 = -(-n // CAPS_BATCH) if name == "capsule" else 0
+            print(f"[two_stage] host {name} {dtype}: {len(frames)} frames, "
+                  f"{n} crops, {wall:.3f} s = {len(frames) / wall:.1f} "
+                  f"frames/s end to end (host clock, restores included; "
+                  f"{SMI}); launches {launches}")
+            require(n > 0, "no crops: the detector found nothing")
+            require(launches == two_stage_launches(len(frames), n_k3),
+                    f"two-stage {name} {dtype}: kernel launches {launches}")
+            require(np.isfinite(y_hat).all() and y_hat.shape == (
+                len(frames), 14, 14, 48 + 43), "combined grid")
+            # the same stages alone, timed on the host clock
+            times = {}
+            t0 = time.perf_counter()
+            dark_y, boxes = predict.dark_pred(frames, dark_dir, dparams,
+                                              "last", device="cuda")
+            times["detector"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            crops = crop.frame_crops(frames, boxes[0], boxes[1],
+                                     int(dparams.capsule_input), "cuda")
+            times["crops"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            scores, cls = predict.class_pred(loader.center_rgb(crops), cdir,
+                                             cparams, "last", device="cuda")
+            times["classifier"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = box_ops.combine_y_hat(frames, dark_y, scores, boxes[0],
+                                         boxes[1], dparams)
+            times["combine"] = time.perf_counter() - t0
+            print(f"[two_stage] host {name} {dtype}: by stage (s, host "
+                  f"clock, each with its restore) "
+                  f"{ {k: round(v, 4) for k, v in times.items()} }")
+            d_det = np.abs(y_hat[..., :48] - dark_y).max()
+            d_cls = np.abs(y_hat[..., 48:] - want[..., 48:]).max()
+            print(f"[two_stage] host {name} {dtype}: combined grid vs "
+                  f"dark_pred's y_hat max_abs_diff {d_det}, class channels "
+                  f"vs class_pred on the same crops {d_cls}")
+            require(np.array_equal(idx, boxes[0])
+                    and np.array_equal(bx, boxes[1])
+                    and np.array_equal(classes, cls), "detections differ")
+            require(d_det <= 1e-6 and d_cls <= 1e-6,
+                    "combined grid differs from its parts")
+            out[name, dtype] = launches
+    return out
+
+
+def check_routing_b512(w):
+    """Phase 17: K3 at the fused path's batch (32 frames x 16 crops)
+    against its plain version, shared memory NaN-filled first; its time
+    beside its bound.  Returns {bf16: (max_abs_err, ms, bound_ms)}."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    b = BATCH * MAX_CROPS
+    x = torch.randn((b, 1296, 8), generator=g, device="cuda")
+    out = {}
+    for bf16 in (False, True):
+        io = torch.bfloat16 if bf16 else torch.float32
+        xi, wi = x.to(io), w.to(io)
+        _build.fill_shared_memory(float("nan"))
+        got = routing.routed_capsules(xi, wi, 3, bf16=bf16)
+        torch.cuda.synchronize()
+        want = routing.routed_capsules_plain(x, w, 3, bf16=bf16)
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, **K3_TOL[bf16])
+        ms = time_ms(lambda: routing.routed_capsules(xi, wi, 3, bf16))
+        plain = time_ms(lambda: routing.routed_capsules_plain(x, w, 3, bf16),
+                        iters=5)
+        bound, by, *_ = routing_bound(b, 1296, 43, bf16)
+        print(f"[K3] routing at B {b} {'bf16' if bf16 else 'f32'}: "
+              f"max_abs_err {err} vs plain; plan "
+              f"{routing.kernel_config(b, 1296, 43, 3, io)['k3']}; kernel "
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), plain {plain:.4f} "
+              f"ms ({SMI})")
+        out[bf16] = (err, ms, bound)
+    return out
+
+
+def run_two_stage_fused(frames, dark_dir, classifiers):
+    """Phase 17: dark_class_pred(device_crop=True) as the CLI calls it,
+    f32 and bf16: launch counts and frames/s; then the same composition
+    per batch with the plain routing, whose class scores must hold K3's
+    bands."""
+    frames = list(frames)
+    out = {}
+    for name, cdir in classifiers.items():
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            dparams, cparams = two_stage_params(name, dtype)
+            n_batches = -(-len(frames) // BATCH)
+            for _ in range(2):   # the second run is timed
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y_hat, (idx, _, _) = predict.dark_class_pred(
+                    frames, dark_dir, dparams, cdir, cparams, "last",
+                    device="cuda", device_crop=True, max_crops=MAX_CROPS)
+                wall = time.perf_counter() - t0
+            launches = read_launches()
+            print(f"[two_stage] fused {name} {dtype}: {len(frames)} frames, "
+                  f"{len(idx)} crops classified, {wall:.3f} s = "
+                  f"{len(frames) / wall:.1f} frames/s end to end (host "
+                  f"clock, restores included; {SMI}); launches {launches}")
+            require(len(idx) > 0 and np.isfinite(y_hat).all(), "fused grid")
+            require(launches == two_stage_launches(
+                len(frames), n_batches if name == "capsule" else 0),
+                f"fused {name} {dtype}: kernel launches {launches}")
+            det = predict.restore_darknet(dparams, dark_dir, "last").cuda()
+            cls = predict.restore_classifier(cparams, cdir, "last").cuda()
+            tail = dict(n_boxes=1, n_classes=43, img_size=448, cap_input=32,
+                        max_crops=MAX_CROPS, conf_th=0.5)
+            with torch.inference_mode():
+                p = ist.prepare_serving(det.state_dict(), dt)
+
+                def fused(xb, classify=cls):
+                    yb = ist.darknet_serving_apply(p, xb, n_boxes=1,
+                                                   n_classes=43, dtype=dt)
+                    return predict.two_stage_tail(xb, yb, classify, **tail)
+
+                # one detector batch on device-resident frames
+                x0 = torch.from_numpy(np.stack(frames[:BATCH])).cuda().float()
+                ms = time_ms(lambda: fused(x0), iters=10)
+                print(f"[time] fused two-stage {name} {dtype}, one batch of "
+                      f"{BATCH} frames (detector, decode, {BATCH * MAX_CROPS}"
+                      f" crops, classifier): {ms:.3f} ms = "
+                      f"{BATCH / ms * 1e3:.1f} frames/s ({SMI})")
+                profile_ms(lambda: fused(x0), ms)
+                if name != "capsule":
+                    continue
+                # the composition per batch, K3 against the plain routing
+                worst = 0.0
+                for i in range(0, len(frames), BATCH):
+                    xb = torch.from_numpy(np.stack(frames[i:i + BATCH]))
+                    xb = xb.cuda().float()
+                    got = fused(xb)
+                    want = fused(xb, lambda c: plain_scores(cls, c, dt))
+                    require(torch.equal(got["valid"], want["valid"]),
+                            "crops differ")
+                    torch.testing.assert_close(got["class_scores"],
+                                               want["class_scores"],
+                                               **K3_TOL[dt == torch.bfloat16])
+                    worst = max(worst, (got["class_scores"]
+                                        - want["class_scores"]).abs().max()
+                                .item())
+            print(f"[two_stage] fused capsule {dtype}: class scores at B "
+                  f"{BATCH * MAX_CROPS} vs the plain routing max_abs_err "
+                  f"{worst} (K3's bands)")
+            out[dtype] = launches
+    return out
+
+
 def main():
+    global SMI
     # phase 1
     require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
-    smi = subprocess.run(
+    SMI = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(SMI)
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
     resolve_device("cuda")  # TF32 off for every f32 conv below
@@ -1306,6 +1632,20 @@ def main():
 
     # phase 14
     time_dark_train_step(dark_train_params("float32"), dx, dy)
+
+    # phase 15
+    cnn_dir = run_cnn_train_slice(os.path.join(HERE, "build", "chip_smoke",
+                                               "cnn_train"))
+
+    # phase 16: phase 5's detector, phase 8's and phase 15's classifiers
+    classifiers = {"capsule": cmodel_dir, "cnn": cnn_dir}
+    host = run_two_stage_host(frames, model_dir, classifiers)
+
+    # phase 17
+    check_routing_b512(
+        cmodel.traffic_sign_capsules.route_weights[0].detach())
+    fused = run_two_stage_fused(frames, model_dir, classifiers)
+    print(f"[two_stage] launches: host {host}; fused capsule {fused}")
 
     pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu_torch"
     jax_pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu"

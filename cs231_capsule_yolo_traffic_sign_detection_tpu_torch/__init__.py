@@ -7,8 +7,9 @@ it is the reference; this package imports neither it nor ``jax``.  It
 holds darknet_r serving (DarkNet-19 at 448 px with BN folded into the
 convs, the fused input stage and pool+leaky as hand-written CUDA
 kernels for sm_90a in ``csrc/``, the full-width grid decode, the
-detection metrics) and training, and the capsule classifier's serving
-and training (the routing and its backward as CUDA kernels).  See
+detection metrics) and training, the capsule classifier's serving and
+training (the routing and its backward as CUDA kernels), the cnn
+classifier's, and the two-stage detect-then-classify pipeline.  See
 README.md, "PyTorch port".
 """
 

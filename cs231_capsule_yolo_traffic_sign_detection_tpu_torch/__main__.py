@@ -1,11 +1,15 @@
-"""CLI of the PyTorch port: darknet_r and capsule predict, train and
-overfit.
+"""CLI of the PyTorch port: darknet_r, capsule and cnn predict, train
+and overfit, and the two-stage darknet_r --combine capsule|cnn.
 
     python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
-        --model darknet_r|capsule --mode predict --restore last \\
+        --model darknet_r|capsule|cnn --mode predict --restore last \\
         [--dtype float32|bfloat16] [--device cuda|cpu] [--model_dir DIR]
     python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
-        --model darknet_r|capsule --mode train|overfit \\
+        --model darknet_r --mode predict --restore last \\
+        --combine capsule|cnn [--device_crop] [--max_crops 16] \\
+        [--dtype float32|bfloat16] [--device cuda|cpu]
+    python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
+        --model darknet_r|capsule|cnn --mode train|overfit \\
         [--dtype float32|bfloat16] [--seed N] [--lr LR] [--dropout P] \\
         [--fine_tune N] [--npy] [--recon] [--recon_coef C] \\
         [--eval_every N] [--train_frac F] [--no_metric] \\
@@ -16,7 +20,15 @@ Reads ``<model_dir>/params.json``.  predict reads
 same file under ``<model_dir><train_frac>``, where training writes),
 predicts over the test set (GTSDB frames for the detector, GTSRB crops
 for the classifier) or, when it is absent, the synthetic test set, and
-writes ``<model_dir>/metric_output.txt`` as the JAX CLI does.  train and
+writes ``<model_dir>/metric_output.txt`` as the JAX CLI does.  With
+``--combine capsule|cnn`` the detector's frames go through the two-stage
+pipeline (`predict.dark_class_pred`; ``--device_crop`` fuses it into one
+device pass per batch, classifying the top ``--max_crops`` boxes of a
+frame): the classifier's params and checkpoint come from its own model
+dir (``experiments/<capsule|cnn>``, the same ``--restore``, ``--dtype``
+and ``--train_frac``), and ``detect_and_recog_mAP`` and
+``detect_and_recog_acc`` go to
+``<model_dir>/combine-<capsule|cnn>_metric_output.txt``.  train and
 overfit train from ``--seed`` (or resume from ``--restore``) on the
 stored set, the first 3 samples of it for overfit, or the synthetic set
 when it is absent, and write ``last.ckpt``/``best.ckpt`` into
@@ -26,8 +38,8 @@ reconstruction loss OFF, and ``--fine_tune N`` with N > 0 only turns
 fine-tuning on (the darknet19 npz ``params.pretrained_weights``, default
 ``./darknet19_weights.npz``, when present): the count of frozen blocks
 is ``fine_tune`` in params.json (18 for darknet_r).  ``--dropout P``
-(P >= 0) overrides the json's dropout.  Any other model or mode exits
-with a "not ported yet" message.
+(P >= 0) overrides the json's dropout.  Any other model, mode or
+``--dtype`` (int8) exits with a "not ported yet" message.
 """
 
 import argparse
@@ -40,13 +52,15 @@ import numpy as np
 from . import config
 from .data import loader
 from .metrics.classification import recog_acc, recog_auc, recog_pr
-from .metrics.detection import detect_AP, detect_acc
+from .device import compute_dtype
+from .metrics.detection import (detect_AP, detect_acc, detect_and_recog_acc,
+                                detect_and_recog_mAP)
 from .params import Params
-from .predict import class_pred, dark_pred
+from .predict import CLASSIFIERS, class_pred, dark_class_pred, dark_pred
 from .train.driver import train_and_evaluate
 from .train.logging_utils import ScalarWriter
 
-PORTED = {(m, mode) for m in ("darknet_r", "capsule")
+PORTED = {(m, mode) for m in ("darknet_r", "capsule", "cnn")
           for mode in ("predict", "train", "overfit")}
 
 parser = argparse.ArgumentParser(
@@ -78,6 +92,15 @@ parser.add_argument("--no_metric", action="store_true",
                     help="do not compute metric")
 parser.add_argument("--npy", default=False, action="store_true",
                     help="data is npy file")
+parser.add_argument("--combine", default=None,
+                    help="predict a detector's frames through a classifier: "
+                    "cnn | capsule")
+parser.add_argument("--device_crop", default=False, action="store_true",
+                    help="--combine only: detect -> crop -> classify in one "
+                    "device pass per batch, crops from the detector input")
+parser.add_argument("--max_crops", default=16, type=int,
+                    help="--device_crop only: boxes classified per frame, "
+                    "the top by confidence")
 
 
 def load_test_set(data_dir, model_name, params):
@@ -118,22 +141,26 @@ def main(argv=None):
                  f"yet; ported: {ported}")
     if args.mode == "predict" and args.restore is None:
         sys.exit("Must give restore file last/best")
+    try:
+        compute_dtype(args.dtype)
+    except ValueError as e:
+        sys.exit(f"--dtype {args.dtype}: {e}")
+    combine = args.mode == "predict" and args.model not in CLASSIFIERS \
+        and args.combine is not None
+    if combine and args.combine not in CLASSIFIERS:
+        sys.exit(f"--combine {args.combine}: choose from "
+                 + " | ".join(CLASSIFIERS))
 
     data_dir = config.data_dir[args.model]
     model_dir = args.model_dir or config.model_dir[args.model]
-    params = Params(os.path.join(model_dir, "params.json"))
-    params.model = args.model
-    params.compute_dtype = args.dtype
-    params.train_frac = args.train_frac
-    params.npy = args.npy
-    if args.dropout >= 0:
-        params.dropout = args.dropout
+    params = load_params(model_dir, args, args.model)
     np.random.seed(args.seed)
     if args.mode in ("train", "overfit"):
         train(args, params, data_dir, model_dir)
         return
 
-    if args.model == "capsule":
+    save_path = model_dir + "/metric_output.txt"
+    if args.model in CLASSIFIERS:
         # classifier crops are used as loaded
         x, y = load_test_set(data_dir, args.model, params)
         y_hat, _ = class_pred(x, model_dir, params, args.restore,
@@ -141,16 +168,41 @@ def main(argv=None):
         metric_out = {"recog_pr": recog_pr(y, y_hat, params),
                       "recog_acc": recog_acc(y, y_hat, params),
                       "recog_auc": recog_auc(y, y_hat, params)}
+    elif combine:
+        x, y = load_test_frames(data_dir, args.model, params)
+        class_model_dir = config.model_dir[args.combine]
+        class_params = load_params(class_model_dir, args, args.combine)
+        y_hat, _ = dark_class_pred(
+            x, model_dir, params, class_model_dir, class_params,
+            args.restore, device=args.device, device_crop=args.device_crop,
+            max_crops=args.max_crops)
+        metric_out = {
+            "detect_and_recog_mAP": detect_and_recog_mAP(y, y_hat, params),
+            "detect_and_recog_acc": detect_and_recog_acc(y, y_hat, params)}
+        save_path = model_dir + f"/combine-{args.combine}_metric_output.txt"
     else:
         x, y = load_test_frames(data_dir, args.model, params)
         y_hat, _ = dark_pred(x, model_dir, params, args.restore,
                              device=args.device)
         metric_out = {"detect_AP": detect_AP(y, y_hat, params),
                       "detect_acc": detect_acc(y, y_hat, params)}
-    with open(model_dir + "/metric_output.txt", "w") as text_file:
+    with open(save_path, "w") as text_file:
         for k, v in metric_out.items():
             text_file.write("{}:{}, ".format(k, v))
             print("{}:{}, ".format(k, v))
+
+
+def load_params(model_dir, args, model):
+    """``<model_dir>/params.json`` with the CLI's overrides for ``model``
+    (JAX main.py:131-163)."""
+    params = Params(os.path.join(model_dir, "params.json"))
+    params.model = model
+    params.compute_dtype = args.dtype
+    params.train_frac = args.train_frac
+    params.npy = args.npy
+    if args.dropout >= 0:
+        params.dropout = args.dropout
+    return params
 
 
 def train(args, params, data_dir, model_dir):

@@ -1,9 +1,10 @@
-"""JAX variables -> the port's state_dict (darknet models and CapsuleNet).
+"""JAX variables -> the port's state_dict (darknet models, CapsuleNet and
+ConvNet).
 
 The JAX package keeps ``{"params", "batch_stats"}`` trees with HWIO
 conv kernels; the port registers the reference state_dict keys and
-OIHW layouts.  `jax_variables_to_state_dict` is the darknet and capsule
-half of the JAX package's ``interop.variables_to_torch_state_dict``,
+OIHW layouts.  `jax_variables_to_state_dict` is the darknet, capsule and
+cnn part of the JAX package's ``interop.variables_to_torch_state_dict``,
 written again here on numpy arrays so the port imports nothing of that
 package.
 """
@@ -16,7 +17,7 @@ import torch
 from .models.darknet import DARKNET_LAYERS
 
 DARKNET_MODELS = ("darknet_d", "darknet_r")
-MODELS = DARKNET_MODELS + ("capsule",)
+MODELS = DARKNET_MODELS + ("capsule", "cnn")
 # CapsuleNet's primary capsules: 16 channels at 9 x 9 positions, 8 convs
 CAPS_CHANNELS, CAPS_POSITIONS, CAPS_CONVS = 16, 81, 8
 
@@ -30,18 +31,22 @@ def _f32(a):
     return torch.from_numpy(np.ascontiguousarray(a, np.float32))
 
 
+def _bn(out, prefix, scale_bias, stats):
+    """flax BatchNorm scale/bias/mean/var -> ``<prefix>.weight``, bias,
+    running_mean, running_var, num_batches_tracked 0."""
+    out[f"{prefix}.weight"] = _f32(scale_bias["scale"])
+    out[f"{prefix}.bias"] = _f32(scale_bias["bias"])
+    out[f"{prefix}.running_mean"] = _f32(stats["mean"])
+    out[f"{prefix}.running_var"] = _f32(stats["var"])
+    out[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
 def _darknet(p, bs):
     out = OrderedDict()
     for i in range(1, len(DARKNET_LAYERS) + 1):
         block_p, block_s = p[f"block_{i}"], bs[f"block_{i}"]
         out[f"model.conv_{i}.weight"] = _conv(block_p[f"conv_{i}"]["kernel"])
-        bn, st = block_p[f"bn_{i}"], block_s[f"bn_{i}"]
-        out[f"model.bn_{i}.weight"] = _f32(bn["scale"])
-        out[f"model.bn_{i}.bias"] = _f32(bn["bias"])
-        out[f"model.bn_{i}.running_mean"] = _f32(st["mean"])
-        out[f"model.bn_{i}.running_var"] = _f32(st["var"])
-        out[f"model.bn_{i}.num_batches_tracked"] = torch.zeros(
-            (), dtype=torch.int64)
+        _bn(out, f"model.bn_{i}", block_p[f"bn_{i}"], block_s[f"bn_{i}"])
     out["model.conv_19.weight"] = _conv(p["conv_19"]["kernel"])
     return out
 
@@ -76,18 +81,51 @@ def _capsule(p):
     return out
 
 
+def dense_chw_perm(chw, channels=128):
+    """Index map: the JAX ConvNet's HWC-flattened dense input -> the
+    reference's CHW index (the JAX interop's ``_dense_chw_perm``)."""
+    hw = chw // channels
+    side = int(round(hw ** 0.5))
+    if side * side * channels != chw:
+        raise ValueError(f"{chw} inputs are not a square of {channels} "
+                         "channels")
+    h, w, c = np.meshgrid(np.arange(side), np.arange(side),
+                          np.arange(channels), indexing="ij")
+    return (c * side * side + h * side + w).reshape(-1)
+
+
+def _convnet(p, bs):
+    """ConvNet: the reference's ``cnn`` Sequential; the first dense
+    layer's input goes from the JAX package's HWC flatten to the
+    reference's CHW one."""
+    out = OrderedDict()
+    for j, (conv, bn) in enumerate(((0, 1), (4, 5))):
+        out[f"cnn.{conv}.weight"] = _conv(p[f"Conv_{j}"]["kernel"])
+        out[f"cnn.{conv}.bias"] = _f32(p[f"Conv_{j}"]["bias"])
+        _bn(out, f"cnn.{bn}", p[f"BatchNorm_{j}"], bs[f"BatchNorm_{j}"])
+    k0 = np.asarray(p["Dense_0"]["kernel"])              # (HWC, out)
+    out["cnn.10.weight"] = _f32(k0.T[:, np.argsort(dense_chw_perm(
+        k0.shape[0]))])
+    out["cnn.10.bias"] = _f32(p["Dense_0"]["bias"])
+    out["cnn.12.weight"] = _f32(np.transpose(p["Dense_1"]["kernel"]))
+    out["cnn.12.bias"] = _f32(p["Dense_1"]["bias"])
+    return out
+
+
 def jax_variables_to_state_dict(variables_np, model_name):
     """``{"params"[, "batch_stats"]}`` of numpy arrays -> the port's
     state_dict for ``model_name``, keys in the reference's registration
     order, so ``load_state_dict(strict=True)`` accepts it.
 
     Kernels go HWIO -> OIHW and dense kernels (in, out) -> (out, in);
-    DarkNet's BN scale/bias/mean/var go to weight/bias/running_mean/
-    running_var with ``num_batches_tracked`` 0.
+    BN scale/bias/mean/var go to weight/bias/running_mean/running_var
+    with ``num_batches_tracked`` 0.
     """
     if model_name not in MODELS:
         raise ValueError(f"{model_name!r} is not ported yet: "
                          f"{' | '.join(MODELS)}")
     if model_name == "capsule":
         return _capsule(variables_np["params"])
+    if model_name == "cnn":
+        return _convnet(variables_np["params"], variables_np["batch_stats"])
     return _darknet(variables_np["params"], variables_np["batch_stats"])

@@ -1,13 +1,15 @@
-"""Losses (PyTorch port of the JAX losses.py): the capsule classifier's
-and the YOLO-v1 detector's.
+"""Losses (PyTorch port of the JAX losses.py): the two classifiers' and
+the YOLO-v1 detector's.
 
 `LossConfig.from_params` reads the same keys with the same defaults as
-the JAX one.  `capsule_loss` is the reference's (loss_fns.py:11-23):
-the margin loss T relu(0.9 - s)^2 + 0.5 (1 - T) relu(s - 0.1)^2 summed
-over every entry, plus ``recon_coef * sum((x - recon)^2)`` when the
-reconstruction is on, all divided by the batch size.  `dark_loss` is
-the JAX package's masked, fixed-shape YOLO-v1 loss.  Both return
-``(loss, aux)`` as the JAX losses do, and neither waits for the card:
+the JAX one.  `cnn_loss` is the reference's softmax cross-entropy
+(loss_fns.py:6-8), summed and divided by the batch size.
+`capsule_loss` is the reference's (loss_fns.py:11-23): the margin loss
+T relu(0.9 - s)^2 + 0.5 (1 - T) relu(s - 0.1)^2 summed over every
+entry, plus ``recon_coef * sum((x - recon)^2)`` when the reconstruction
+is on, all divided by the batch size.  `dark_loss` is the JAX package's
+masked, fixed-shape YOLO-v1 loss.  All return
+``(loss, aux)`` as the JAX losses do, and none waits for the card:
 no ``.item()``, no ``F.one_hot`` (it checks its labels on the host), no
 boolean indexing.  darkcapsule's loss is not ported yet.
 """
@@ -52,6 +54,14 @@ def _one_hot(index, n, dtype):
     host, which waits for the card once per step."""
     return (index[..., None] == torch.arange(n, device=index.device)).to(
         dtype)
+
+
+def cnn_loss(scores, y, cfg, x=None, recon=None):
+    """Softmax cross-entropy: -log softmax(scores) at the label, summed
+    over the batch and divided by its size.  scores (B, n_classes), y
+    (B,) int labels."""
+    picked = F.log_softmax(scores, dim=1).gather(1, y.long()[:, None])
+    return -picked.sum() / y.shape[0], {}
 
 
 def capsule_loss(scores, y, cfg, x=None, recon=None):

@@ -1,7 +1,7 @@
 """Detection metrics (numpy): the subset of the JAX metrics/detection.py
-that darknet_r's predict mode and training report — COCO-style AP over
-an (IoU x confidence) threshold sweep, F1 at conf .5 / IoU .5, and its
-class-wise form.  No plots."""
+that darknet_r's predict mode, its training and the two-stage pipeline
+report — COCO-style AP over an (IoU x confidence) threshold sweep, F1
+at conf .5 / IoU .5, and their class-wise forms.  No plots."""
 
 import numpy as np
 
@@ -157,3 +157,24 @@ def detect_and_recog_acc(y, y_hat, params):
         FN += int(fn[0, 0])
     p, r = precision_and_recall(TP, FP, FN)
     return 2 * p * r / (p + r + 1e-8)
+
+
+def detect_and_recog_mAP(y, y_hat, params):
+    """Class-wise COCO-style AP: per class, the 11-point AP at each IoU
+    threshold over the confidence sweep, averaged over the classes
+    present in ``y``.  As the reference, it sets ``params.n_classes`` to
+    43 first (and leaves it so).  The two-stage pipeline's metric."""
+    params.n_classes = 43
+    gt = decode_with_conf(y, params)
+    pred = decode_with_conf(y_hat, params)
+    avg_ps = []
+    for c in range(params.n_classes):
+        TP, FP, FN = confusion_sweep(gt, pred, IOU_THS, CONF_THS,
+                                     cls_filter=c)
+        p, r = _pr_curves(TP, FP, FN)
+        avg_ps.extend(average_precision(p[i], r[i])
+                      for i in range(len(IOU_THS)))
+    y = np.asarray(y)
+    present = np.sign(y[:, :, :, 5:].reshape(-1, 43).sum(axis=0)) > 0
+    avg_ps = np.asarray(avg_ps).reshape(params.n_classes, -1)[present]
+    return float(np.mean(avg_ps))

@@ -1,2 +1,3 @@
 from .capsule_net import CapsuleNet  # noqa: F401
 from .darknet import DARKNET_LAYERS, DarkNet  # noqa: F401
+from .convnet import ConvNet  # noqa: F401

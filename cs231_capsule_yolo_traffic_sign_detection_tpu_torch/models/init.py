@@ -4,10 +4,10 @@ JAX models/init.py).
 The reference relies on torch's default inits: U(-1/sqrt(fan_in),
 +1/sqrt(fan_in)) for conv and linear weights and biases (kaiming-uniform
 with a = sqrt(5)), and 0.1 * N(0, 1) for the capsule route weights
-(reference models.py:57-58).  `init_capsulenet` and `init_darknet`
-draw all of them from one ``torch.Generator`` seeded from ``seed``, so
-a model's initial weights depend on ``--seed`` and on nothing else;
-BatchNorm starts at scale 1, bias 0, mean 0 and variance 1.  The JAX
+(reference models.py:57-58).  `init_capsulenet`, `init_darknet` and
+`init_convnet` draw all of them from one ``torch.Generator`` seeded from
+``seed``, so a model's initial weights depend on ``--seed`` and on
+nothing else; BatchNorm starts at scale 1, bias 0, mean 0 and variance 1.  The JAX
 package's draws (jax.random) differ from torch's; the tests carry
 weights across instead of comparing inits.
 """
@@ -46,14 +46,24 @@ def init_capsulenet(model, seed=0):
     return model
 
 
-def init_darknet(model, seed=0):
-    """Every conv weight of a DarkNet from ``torch.Generator(seed)``, in
-    registration order (conv_1 .. conv_19); BatchNorm reset to its
-    defaults."""
+def _init_layers(model, seed):
+    """Every conv and dense layer from ``torch.Generator(seed)``, in
+    registration order; BatchNorm reset to its defaults."""
     g = torch.Generator().manual_seed(int(seed))
     for module in model.modules():
-        if isinstance(module, nn.Conv2d):
+        if isinstance(module, (nn.Conv2d, nn.Linear)):
             torch_default_(module, g)
         elif isinstance(module, nn.BatchNorm2d):
             module.reset_parameters()
     return model
+
+
+def init_darknet(model, seed=0):
+    """A DarkNet's conv weights (conv_1 .. conv_19) from ``seed``."""
+    return _init_layers(model, seed)
+
+
+def init_convnet(model, seed=0):
+    """A ConvNet's convs and dense layers (cnn.0, 4, 10, 12) from
+    ``seed``."""
+    return _init_layers(model, seed)

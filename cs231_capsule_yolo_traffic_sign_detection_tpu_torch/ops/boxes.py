@@ -1,6 +1,7 @@
 """Box geometry, the subset of the JAX ops/boxes.py that the detector
-uses: host-side (numpy) helpers for its data, decode and metrics, and
-the device-side (torch) conversion and IoU of its loss."""
+and the two-stage pipeline use: host-side (numpy) helpers for the data,
+decode, metrics and `combine_y_hat`, and the device-side (torch)
+conversion and IoU of the detector's loss."""
 
 import numpy as np
 import torch
@@ -10,6 +11,23 @@ def xy_to_cwh(box_xy):
     """Corner box [x1,y1,x2,y2] -> center box [xc,yc,w,h]."""
     x1, y1, x2, y2 = box_xy
     return [(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1]
+
+
+def cwh_to_xy(box_cwh):
+    """Center box [xc,yc,w,h] -> corner box [x1,y1,x2,y2]."""
+    xc, yc, w, h = box_cwh
+    return [xc - w / 2, yc - h / 2, xc + w / 2, yc + h / 2]
+
+
+def resize_box_xy(orig_hw, resized_hw, box_xy):
+    """Corner box in an image of ``orig_hw`` -> the same box in the image
+    resized to ``resized_hw``."""
+    orig_h, orig_w = orig_hw
+    resized_h, resized_w = resized_hw
+    x1, y1, x2, y2 = box_xy
+    wr = 1.0 * resized_w / orig_w
+    hr = 1.0 * resized_h / orig_h
+    return [x1 * wr, y1 * hr, x2 * wr, y2 * hr]
 
 
 def normalize_box_cwh(image_hw, n_grid, box_cwh):
@@ -82,6 +100,35 @@ def y_to_boxes_vec(y, params, image_hw=None, conf_th=0.5):
     else:
         classes = None
     return image_indices, xy, classes
+
+
+def combine_y_hat(images, dark_y_hat, class_y_hat, image_indices, boxes_xy,
+                  params):
+    """The two-stage grid: the detector's channels (batch, g, g, D), then
+    in each detected box's cell the classifier's n_classes scores.
+
+    Box i (corners in frame ``images[image_indices[i]]``) is moved to
+    the darknet_input frame and its centre's cell takes row i of
+    ``class_y_hat``; a later box in the same cell overwrites an earlier
+    one, and a centre on the right or bottom edge falls in the last
+    cell.  Returns float64 (batch, g, g, D + n_classes)."""
+    dark_y_hat = np.asarray(dark_y_hat)
+    batch_size, n_grid, _, depth = dark_y_hat.shape
+    n_classes = class_y_hat.shape[1]
+
+    y_hat = np.zeros((batch_size, n_grid, n_grid, depth + n_classes))
+    y_hat[:, :, :, 0:depth] = dark_y_hat
+
+    resized_hw = (params.darknet_input, params.darknet_input)
+    for i, index in enumerate(image_indices):
+        orig_hw = images[index].shape[0:2]
+        resized_box_xy = resize_box_xy(orig_hw, resized_hw, boxes_xy[i])
+        box_cwh = xy_to_cwh(resized_box_xy)
+        _, (row, col) = normalize_box_cwh(resized_hw, params.n_grid, box_cwh)
+        row = min(row, n_grid - 1)
+        col = min(col, n_grid - 1)
+        y_hat[index, row, col, depth:] = class_y_hat[i, :]
+    return y_hat
 
 
 # ---------------------------------------------------------------------------

@@ -11,13 +11,18 @@ on the card therefore never reaches the caller.  No NMS.
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
-def decode_grid(y, *, n_classes, n_boxes, img_size, conf_th=0.5):
+def decode_grid(y, *, n_classes, n_boxes, img_size, max_boxes=None,
+                conf_th=0.5):
     """Decode (batch, g, g, 5B+C) into fixed-size per-image box lists.
 
-    All n = g*g*B candidates are kept, so no above-threshold box is
-    dropped.  Returns a dict of tensors on y's device:
+    ``max_boxes`` (n below) defaults to all g*g*B candidates, so no
+    above-threshold box is dropped; a smaller static cap keeps the top
+    ``max_boxes`` by confidence (the fused two-stage path), and a larger
+    one pads with invalid zero slots.  Returns a dict of tensors on y's
+    device:
       conf (batch, n) descending; xy (batch, n, 4) corner boxes in the
       img_size frame; classes (batch, n) int32 argmax class (0 if
       C == 0); valid (batch, n) bool, conf > conf_th; idx (batch, n)
@@ -28,6 +33,9 @@ def decode_grid(y, *, n_classes, n_boxes, img_size, conf_th=0.5):
     if D != 5 * B + C:
         raise ValueError(f"decode_grid: {D} channels != 5*{B} + {C}")
     n_cand = g * g * B
+    if max_boxes is None:
+        max_boxes = n_cand
+    k = min(max_boxes, n_cand)
 
     yb = y[..., : 5 * B].reshape(batch, g, g, B, 5)
     conf = yb[..., 0]
@@ -46,13 +54,18 @@ def decode_grid(y, *, n_classes, n_boxes, img_size, conf_th=0.5):
     else:
         cls = torch.zeros(conf.shape, dtype=torch.int32, device=y.device)
 
-    top_conf, top_idx = torch.topk(conf.reshape(batch, n_cand), n_cand,
-                                   dim=1, sorted=True)
+    top_conf, top_idx = torch.topk(conf.reshape(batch, n_cand), k, dim=1,
+                                   sorted=True)
     out_xy = torch.gather(xy.reshape(batch, n_cand, 4), 1,
-                          top_idx[..., None].expand(batch, n_cand, 4))
+                          top_idx[..., None].expand(batch, k, 4))
     out_cls = torch.gather(cls.reshape(batch, n_cand), 1, top_idx)
-    return {"conf": top_conf, "xy": out_xy, "classes": out_cls,
-            "valid": top_conf > conf_th, "idx": top_idx.to(torch.int32)}
+    out = {"conf": top_conf, "xy": out_xy, "classes": out_cls,
+           "valid": top_conf > conf_th, "idx": top_idx.to(torch.int32)}
+    if k < max_boxes:  # pad to the static width with invalid zero slots
+        pad = max_boxes - k
+        out = {name: F.pad(t, (0, 0, 0, pad) if t.dim() == 3 else (0, pad))
+               for name, t in out.items()}
+    return out
 
 
 def to_flat_host(decoded, image_hw=None, img_size=None, with_classes=True):

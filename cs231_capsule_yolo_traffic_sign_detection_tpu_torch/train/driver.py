@@ -1,5 +1,5 @@
 """Training and evaluation (counterpart of the JAX train/driver.py), for
-the capsule classifier and the darknet_r detector.
+the cnn and capsule classifiers and the darknet_r detector.
 
 Per epoch, as the reference's main.py:42-217 and the JAX driver: a
 shuffle from the global ``np.random`` stream, ``np.array_split``
@@ -7,7 +7,7 @@ batching, a train epoch, an eval epoch, the plateau LR step on the
 TRAIN loss, the scalars (train_loss / eval_loss / train_metric /
 eval_metric), last/best checkpoints into ``model_dir + str(train_frac)``,
 the ``.npy`` loss and metric histories, and the metric on at most 1000
-subsampled rows (`METRICS`: recog_acc for capsule,
+subsampled rows (`METRICS`: recog_acc for cnn and capsule,
 detect_and_recog_acc for darknet_r).  The detector's ``avg_iou`` (the
 loss's aux) is kept per epoch as ``last_avg_iou``.
 
@@ -18,7 +18,7 @@ gather per batch on the device, with the same ``np.random.permutation``
 and ``np.array_split`` use as the JAX driver's device-data path, so the
 same ``np.random.seed`` gives both frameworks the same batches.  The
 losses stay on the device until one fetch per epoch; nothing syncs the
-host per batch.  The detector's dropout masks come from a
+host per batch.  The dropout masks (darknet_r, cnn) come from a
 ``torch.Generator`` on the device that the Trainer owns, seeded from
 ``seed``.  With ``params.do_fine_tune`` the darknet19 npz is loaded
 (when present) and the blocks up to ``params.fine_tune`` are frozen.
@@ -37,7 +37,7 @@ from ..device import compute_dtype, resolve_device
 from ..losses import LossConfig
 from ..metrics.classification import recog_acc
 from ..metrics.detection import detect_and_recog_acc
-from ..models import CapsuleNet, DarkNet
+from ..models import CapsuleNet, ConvNet, DarkNet
 from ..models.darknet import freeze_darknet, load_darknet19_npz
 from . import checkpoint as ckpt
 from .plateau import ReduceLROnPlateau
@@ -45,7 +45,8 @@ from .steps import eval_step, make_optimizer, train_step
 from .summary import summarize
 
 # each trained model's epoch metric (JAX metrics/__init__.py:15-25)
-METRICS = {"capsule": recog_acc, "darknet_r": detect_and_recog_acc}
+METRICS = {"cnn": recog_acc, "capsule": recog_acc,
+           "darknet_r": detect_and_recog_acc}
 TRAINED_MODELS = tuple(METRICS)
 
 
@@ -60,14 +61,17 @@ def build_model(params, seed, device):
     """The model of ``params.model`` in ``params.compute_dtype``, its
     weights from ``seed``, on ``device``."""
     dtype = compute_dtype(params.get("compute_dtype", "float32"))
+    dropout = float(params.get("dropout", 0.0))
     if params.model == "capsule":
         model = CapsuleNet(n_classes=int(params.n_classes), dtype=dtype,
                            seed=seed)
+    elif params.model == "cnn":
+        model = ConvNet(n_classes=int(params.n_classes), dropout=dropout,
+                        dtype=dtype, seed=seed)
     else:
         model = DarkNet(n_boxes=int(params.n_boxes),
                         n_classes=int(params.n_classes),
-                        dropout=float(params.get("dropout", 0.0)),
-                        dtype=dtype, seed=seed)
+                        dropout=dropout, dtype=dtype, seed=seed)
     return model.to(device)
 
 
@@ -86,7 +90,7 @@ class Trainer:
         self.metric = METRICS[self.model_name]
         self.model = build_model(params, seed, self.device)
         self.generator = None
-        if isinstance(self.model, DarkNet):
+        if isinstance(self.model, (DarkNet, ConvNet)):
             self.generator = torch.Generator(device=self.device)
             self.generator.manual_seed(int(seed))
         if params.get("do_fine_tune", False):

@@ -1,5 +1,6 @@
 """PyTorch port on the card: the CUDA kernels against their plain
-versions, dark_pred and class_pred on the card against the same calls
+versions, dark_pred, class_pred (CapsuleNet and ConvNet), the crop
+sampler and the two-stage pipeline on the card against the same calls
 on the CPU, one capsule train step on the card, and one darknet_r train
 step on the card against the same step on the CPU, with its dropout
 masks from a seeded generator.
@@ -20,9 +21,9 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import loader
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
     resolve_device)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
-    CapsuleNet, DarkNet)
+    CapsuleNet, ConvNet, DarkNet)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
-    _build, input_stage as ist, pool, routing)
+    _build, crop, input_stage as ist, pool, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.params import Params
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
     checkpoint as ckpt, steps)
@@ -117,8 +118,11 @@ def test_dark_pred_on_card_matches_cpu(card, tmp_path):
 
 # CapsuleNet's shape, then the edges of the kernels' tiling: B not a
 # multiple of the element groups, N not a multiple of the node tiles
-# times the cluster, one capsule and the most the kernels take
-ROUTING_SHAPES = [(64, 1296, 43), (3, 150, 5), (17, 1297, 48), (3, 150, 1)]
+# times the cluster, one capsule and the most the kernels take; then the
+# two-stage pipeline's batches: the fused path's 32 frames x 16 crops,
+# and one crop (the host path's ragged last batch)
+ROUTING_SHAPES = [(64, 1296, 43), (3, 150, 5), (17, 1297, 48), (3, 150, 1),
+                  (512, 1296, 43), (1, 1296, 43)]
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -328,3 +332,98 @@ def test_darknet_dropout_on_card_follows_its_seed(card):
         model.load_state_dict(state)
     assert torch.equal(outs[0], outs[1])
     assert not torch.equal(outs[0], outs[2])
+
+
+def test_convnet_on_card_matches_cpu(card, tmp_path):
+    """ConvNet's eval forward through class_pred, and one train-mode
+    forward and backward, on the card against the CPU (f32, TF32 off)."""
+    params = Params(model="cnn", n_classes=43, batch_size=8)
+    ckpt.save_checkpoint({"epoch": 0, "optim_dict": {}, "state_dict":
+                          ConvNet(43, seed=1).state_dict()}, False,
+                         str(tmp_path))
+    _, _, x, y = loader.synthetic_dataset("cnn", params, 0, 20)
+    y_card, c_card = predict.class_pred(x, str(tmp_path), params, "last",
+                                        device="cuda")
+    y_cpu, _ = predict.class_pred(x, str(tmp_path), params, "last",
+                                  device="cpu")
+    np.testing.assert_allclose(y_card, y_cpu, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(c_card, np.argmax(y_card, axis=1))
+    cfg = losses.LossConfig.from_params(params)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        model = ConvNet(43, dropout=0.0, seed=1).to(dev).train()
+        loss, _, _ = steps.loss_and_scores(
+            model, torch.from_numpy(x[:8]).to(dev),
+            torch.from_numpy(y[:8]).to(dev), cfg, "cnn")
+        loss.backward()
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    for name, g in grads[0].items():
+        if name in ("cnn.0.bias", "cnn.4.bias"):   # zero: rounding noise
+            continue
+        torch.testing.assert_close(grads[1][name], g, rtol=1e-3,
+                                   atol=1e-4 * g.abs().max().item(),
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_crop_resize_bilinear_on_card_matches_cpu(card):
+    imgs = torch.rand((2, 96, 120, 3), generator=card, device="cuda") * 255
+    boxes = torch.tensor([[[10.0, 20.0, 74.0, 90.0], [-20.0, -10.0, 40.0,
+                                                      50.0],
+                           [5.0, 5.0, 6.0, 6.0], [10.0, 10.0, 10.0, 30.0]],
+                          [[0.0, 0.0, 120.0, 96.0], [100.5, 80.2, 140.0,
+                                                     120.0],
+                           [30.7, 3.3, 90.1, 60.9], [1.0, 1.0, 3.0, 2.0]]],
+                         device="cuda")
+    valid = torch.tensor([[True, True, True, True], [True, True, False,
+                                                     True]], device="cuda")
+    for out in (32, 7):
+        got = crop.crop_resize_bilinear(imgs, boxes, out, valid)
+        want = crop.crop_resize_bilinear(imgs.cpu(), boxes.cpu(), out,
+                                         valid.cpu())
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("classifier", ["capsule", "cnn"])
+def test_dark_class_pred_on_card_matches_cpu(card, tmp_path, classifier):
+    """Both two-stage paths at 64 px: the card's launches (K2 and K1 per
+    detector batch, K3 per classifier batch on the host path and once
+    per detector batch fused) and the combined grid against the CPU."""
+    dparams = Params(model="darknet_r", n_classes=43, n_boxes=1, n_grid=2,
+                     darknet_input=64, capsule_input=32, batch_size=4)
+    cparams = Params(model=classifier, n_classes=43, batch_size=8)
+    _, _, x, _ = loader.synthetic_dataset("darknet_r", dparams, 0, 8)
+    frames = list(np.clip(x * 128.0 + 128, 0, 255).astype(np.uint8))
+    # BN statistics of these frames (one batch), the head scaled: 12 of
+    # the 32 confidences above 0.5, none within 0.017 of it
+    model = DarkNet(1, 43, seed=2)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = None
+    with torch.no_grad():
+        model.train()(torch.from_numpy(np.stack(frames)).float())
+        model.model.conv_19.weight.mul_(8.0)
+    ddir, cdir = str(tmp_path / "dark"), str(tmp_path / "cls")
+    cls = CapsuleNet(43, seed=3) if classifier == "capsule" else ConvNet(
+        43, seed=3)
+    for d, m in ((ddir, model), (cdir, cls)):
+        ckpt.save_checkpoint({"epoch": 0, "optim_dict": {},
+                              "state_dict": m.state_dict()}, False, d)
+    for device_crop in (False, True):
+        kw = dict(device_crop=device_crop, max_crops=4)
+        y_cpu, (idx, _, _) = predict.dark_class_pred(
+            frames, ddir, dparams, cdir, cparams, "last", device="cpu", **kw)
+        for fn in (ist.input_stage, pool.maxpool2_leaky,
+                   routing.routed_capsules):
+            fn.launches = 0
+        y_card, (idx_card, _, _) = predict.dark_class_pred(
+            frames, ddir, dparams, cdir, cparams, "last", device="cuda",
+            **kw)
+        n_k3 = 0 if classifier == "cnn" else (
+            2 if device_crop else -(-len(idx) // 8))
+        assert (ist.input_stage.launches, pool.maxpool2_leaky.launches,
+                routing.routed_capsules.launches) == (2, 8, n_k3)
+        np.testing.assert_array_equal(idx_card, idx)
+        assert 0 < len(idx) < 32
+        # dark_pred's card band (test_dark_pred_on_card_matches_cpu)
+        np.testing.assert_allclose(y_card, y_cpu, rtol=1e-4, atol=5e-5)

@@ -157,7 +157,7 @@ def test_cli_predict_writes_metrics(slice_setup, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "cnn", "--mode", "predict", "--restore", "last"],
+    ["--model", "darkcapsule", "--mode", "predict", "--restore", "last"],
     ["--model", "darknet_d", "--mode", "train"],
 ])
 def test_cli_refuses_what_is_not_ported(argv):

@@ -11,11 +11,12 @@ import jax.numpy as jnp
 import torch
 
 from cs231_capsule_yolo_traffic_sign_detection_tpu.models import (
-    CapsuleNet as JaxCapsuleNet, DarkNet as JaxDarkNet)
+    CapsuleNet as JaxCapsuleNet, ConvNet as JaxConvNet, DarkNet as JaxDarkNet)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.interop import (
     jax_variables_to_state_dict)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
-    CapsuleNet as TorchCapsuleNet, DarkNet as TorchDarkNet)
+    CapsuleNet as TorchCapsuleNet, ConvNet as TorchConvNet,
+    DarkNet as TorchDarkNet)
 
 
 def jax_darknet(n_boxes, n_classes, size=64, seed=0):
@@ -95,3 +96,34 @@ def write_darknet19_npz(path, seed=7):
         in_c = out_c
     np.savez(path, **arrs)
     return arrs
+
+
+def jax_convnet(n_classes=43, seed=0, dtype=None, dropout=0.0):
+    """(flax ConvNet, numpy variables) with BN scale, bias and running
+    statistics perturbed away from their defaults, so the BN in eval
+    mode is not an identity."""
+    model = JaxConvNet(n_classes=n_classes, dropout=dropout, dtype=dtype)
+    x = jnp.zeros((1, 32, 32, 3), jnp.float32)
+    variables = model.init(jax.random.PRNGKey(seed), x)
+    variables = jax.tree_util.tree_map(np.array, dict(variables))
+    rng = np.random.RandomState(seed + 1)
+    for j in range(2):
+        bn_p = variables["params"][f"BatchNorm_{j}"]
+        bn_s = variables["batch_stats"][f"BatchNorm_{j}"]
+        c = bn_p["scale"].shape
+        bn_p["scale"] = (1 + 0.2 * rng.randn(*c)).astype(np.float32)
+        bn_p["bias"] = (0.1 * rng.randn(*c)).astype(np.float32)
+        bn_s["mean"] = (0.1 * rng.randn(*c)).astype(np.float32)
+        bn_s["var"] = (0.5 + rng.rand(*c)).astype(np.float32)
+    return model, variables
+
+
+def torch_convnet(variables_np, n_classes=43, dtype=torch.float32):
+    """The port's eval-mode ConvNet loaded (strict) from JAX variables
+    (float64: parameters and buffers too)."""
+    model = TorchConvNet(n_classes=n_classes, dropout=0.0, dtype=dtype)
+    if dtype == torch.float64:
+        model.double()
+    model.load_state_dict(
+        jax_variables_to_state_dict(variables_np, "cnn"), strict=True)
+    return model.eval()
