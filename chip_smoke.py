@@ -13,12 +13,17 @@ counts set to 0 just before it, and is checked on all four just after):
 3. K1 pool_leaky against its plain version at DarkNet's four pool shapes
    at batch 32 (f32 bit-exact, bf16 within 1e-2);
 4. K2 input_stage against its plain version at [32, 448, 448, 3] and at
-   two ragged shapes (16-bit and 16-byte halo loads), each call just
-   after every SM's shared memory was filled with NaN: f32 rtol/atol
-   1e-5 with TF32 off; bf16 (the mma.sync kernel) within one bf16 ulp
-   (rtol 2^-7, atol 1e-5) of the one-rounding reference (f32 math on
-   the bf16 operands, rounded once), within mean 5e-3 / max 0.1 of the
-   plain bf16 path, and bit-identical over two calls;
+   two ragged shapes (scalar and 16-byte halo loads), each call just
+   after every SM's shared memory was filled with NaN: f32 (the 3xTF32
+   mma.sync kernel: split TF32 operands on the tensor cores) rtol/atol
+   1e-5 against the plain version with TF32 off, and on 0-255 integer
+   frames (exact in TF32) with BN-folded He weights (the serving
+   slice's scale) rtol
+   1e-5 / atol 1e-5 of the largest output against the plain version in
+   f64; bf16 (the mma.sync kernel) within one bf16 ulp (rtol 2^-7, atol
+   1e-5) of the one-rounding reference (f32 math on the bf16 operands,
+   rounded once), within mean 5e-3 / max 0.1 of the plain bf16 path;
+   both types bit-identical over two calls;
 5. the darknet_r serving slice at full width (448 px, n_grid 14, B=1,
    C=43, seeded weights) through `dark_pred`, as the CLI calls it, over
    64 synthetic scenes in batches of 32, in f32 and bf16: K2 must launch
@@ -26,7 +31,8 @@ counts set to 0 just before it, and is checked on all four just after):
    on the card, and the f32 box lists must equal the reference's;
 6. timings with CUDA events: each kernel beside its bound for its data
    type, its plain version and the PyTorch yardstick composition (K2
-   per data type: f32 on FMA, bf16 on mma.sync), and
+   per data type, both on mma.sync: f32 as 3xTF32, its bound at TF32's
+   rate beside the CUDA-core bound of earlier runs; bf16), and
    forward+decode img/s at batch 32 with a torch.profiler breakdown of
    the same calls (kernel time by group, device busy share);
 7. K3 routing against its plain version at CapsuleNet's shape
@@ -142,8 +148,9 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-# H100 SXM dense peaks: f32 outside the tensor cores; bf16 on them
-FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# H100 SXM dense peaks: f32 outside the tensor cores; bf16 and TF32 (K2
+# f32's three split products) on them
+FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 495e12}
 BATCH = 32
 FLUSH_BYTES = 128 << 20     # written between cold-L2 timed calls (L2 50 MB)
 # bf16 slice against the f32 eval DarkNet: mean abs error per channel
@@ -152,7 +159,8 @@ BF16_BANDS = {"confidence": 2e-2, "box": 2e-2, "class": 2e-3}
 POOL_SHAPES = [(BATCH, 224, 224, 64), (BATCH, 112, 112, 128),
                (BATCH, 56, 56, 256), (BATCH, 28, 28, 512)]
 # K2's shapes in phase 4: darknet_r's, then two that fill no tile, with
-# W2 % 8 != 0 (16-bit halo loads) and W2 % 8 == 0 (16-byte loads)
+# W2 % 4 != 0 (scalar halo loads in both types) and W2 % 8 == 0 (16-byte
+# loads)
 K2_SHAPES = [(BATCH, 448, 448, 3), (3, 66, 130, 3), (2, 66, 136, 3)]
 # K2 bf16 against the one-rounding reference: one bf16 ulp
 K2_BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
@@ -177,7 +185,8 @@ GROUPS = (("routing_bwd (K4)", ("routing_bwd_sweep", "bwd_prep_kernel",
                                 "bwd_finish_kernel")),
           ("routing", ("routing_kernel",)),
           ("Adam", ("adam", "multi_tensor_apply")),
-          ("input_stage", ("input_stage_kernel", "input_stage_mma_kernel")),
+          ("input_stage", ("input_stage_tf32x3_kernel",
+                           "input_stage_mma_kernel")),
           ("pool_leaky", ("pool_leaky_kernel",)),
           ("leaky_relu", ("leaky_relu",)),
           ("bias add", ("functor_add",)),
@@ -264,7 +273,8 @@ def time_ms(fn, iters=20, warmup=3, cold=False):
 
 def bound_ms(n_bytes, n_flop, dtype):
     """Least time for the work: bytes over HBM rate or operations over
-    the card's peak for ``dtype``, whichever is larger, and which."""
+    the card's peak for ``dtype`` (a key of FLOP_PER_S), whichever is
+    larger, and which."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flop / FLOP_PER_S[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -292,6 +302,38 @@ def check_pool():
     return worst
 
 
+def pixel_operands(shape, g):
+    """0-255 integer frames and a conv1 at the serving slice's scale:
+    He-normal weights with BN folded from the frames' own statistics
+    (unit-scale outputs after a large cancellation)."""
+    x = torch.randint(0, 256, shape, generator=g, device="cuda").float()
+    w0 = (torch.randn((3, 3, 3, 32), generator=g, device="cuda",
+                      dtype=torch.float64) * (2 / 27) ** 0.5)
+    y = F.conv2d(x.double().permute(0, 3, 1, 2), w0.permute(3, 2, 0, 1),
+                 padding=1)
+    scale = (y.var((0, 2, 3)) + 1e-5).rsqrt()
+    return (x, (w0 * scale).float().contiguous(),
+            (-y.mean((0, 2, 3)) * scale).float())
+
+
+def check_input_stage_pixels(shape, g):
+    """Phase 4, K2 f32 on 0-255 frames against the plain version in f64:
+    rtol 1e-5, atol 1e-5 of the largest output."""
+    x, w, b = pixel_operands(shape, g)
+    _build.fill_shared_memory(float("nan"))
+    got = ist.input_stage(x, w, b)
+    torch.cuda.synchronize()
+    want = ist.input_stage_apply(
+        x.double(), *ist.phase_kernel(w.double(), b.double()), 32)
+    atol = 1e-5 * want.abs().max().item()
+    err = (got.double() - want).abs()
+    print(f"[K2] input_stage {shape} float32 on 0-255 frames: max_abs_err "
+          f"{err.max().item()} vs f64 (band rtol 1e-5, atol {atol})")
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=atol)
+    require(torch.equal(got, ist.input_stage(x, w, b)),
+            "K2 f32: two calls differ")
+
+
 def check_input_stage():
     """Phase 4: K2 against its plain version; returns the max abs error
     per dtype at darknet_r's shape (f32 against the plain version, bf16
@@ -314,8 +356,10 @@ def check_input_stage():
             name = f"[K2] input_stage {shape} {str(dtype)[6:]}"
             if dtype == torch.float32:
                 print(f"{name}: max_abs_err {err.max().item()} mean "
-                      f"{err.mean().item()}")
+                      f"{err.mean().item()}; two calls bit-identical")
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+                require(torch.equal(got, ist.input_stage(xd, wd, b)),
+                        "K2 f32: two calls differ")
             else:
                 # the plain bf16 path rounds the conv and the bias apart
                 require(err.mean().item() < 5e-3 and err.max().item() < 0.1,
@@ -334,6 +378,9 @@ def check_input_stage():
                 err = err1
             if shape == K2_SHAPES[0]:
                 out[dtype] = err.max().item()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for shape in K2_SHAPES:
+        check_input_stage_pixels(shape, g)
     return out
 
 
@@ -510,14 +557,27 @@ def time_input_stage(sd):
              "library_ms": time_ms(lambda: F.leaky_relu(F.max_pool2d(
                  F.conv2d(xv, w_oihw, b.to(dtype), padding=1), 2, 2), 0.1))}
         n_in, n_out = x.numel(), BATCH * 224 * 224 * 32
-        t["bound_ms"], t["bound_by"] = bound_ms(
-            s * (n_in + n_out) + 4 * (864 + 32),
-            BATCH * 448 * 448 * 32 * 27 * 2, dtype)
-        design = ("mma.sync, bf16 tensor cores" if dtype == torch.bfloat16
-                  else "f32 FMA")
+        n_bytes = s * (n_in + n_out) + 4 * (864 + 32)
+        n_flop = BATCH * 448 * 448 * 32 * 27 * 2
+        cold = time_ms(lambda: ist.input_stage(x, w, b), cold=True)
+        if dtype == torch.float32:
+            # three split products on the TF32 tensor cores; beside it the
+            # bound on the f32 CUDA cores, which the FMA kernel had
+            t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, 3 * n_flop,
+                                                    "tf32")
+            fma_ms, _ = bound_ms(n_bytes, n_flop, dtype)
+            design = "3xTF32 mma.sync, TF32 tensor cores"
+            extra = (f"; the ops at TF32's rate "
+                     f"{3 * n_flop / FLOP_PER_S['tf32'] * 1e3:.4f} ms; on "
+                     f"the f32 CUDA cores {fma_ms:.4f} ms")
+        else:
+            t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, n_flop, dtype)
+            design, extra = "mma.sync, bf16 tensor cores", ""
         print(f"[time] input_stage {tuple(x.shape)} {str(dtype)[6:]} "
-              f"({design}): kernel {t['ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+              f"({design}): kernel {t['ms']:.4f} ms (L2 flushed "
+              f"{cold:.4f}), "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}{extra}), "
+              f"share of the bound {t['bound_ms'] / t['ms']:.3f}, plain "
               f"{t['plain_ms']:.4f} ms, conv2d+max_pool2d+leaky_relu "
               f"{t['library_ms']:.4f} ms")
         k2[dtype] = t
@@ -1657,6 +1717,8 @@ def main():
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "bytes",
          "library_ms": k1["library_ms"]},
+        # K2's f32 kernel (input_stage_tf32x3_kernel: 3xTF32 on mma.sync,
+        # bound by bytes), from the f32 slice
         {"name": "input_stage", "route": "cuda",
          "source": f"{pkg}/csrc/input_stage.cu",
          "replaces": f"{jax_pkg}/ops/input_stage.py:177",

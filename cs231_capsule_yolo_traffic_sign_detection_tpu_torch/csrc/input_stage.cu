@@ -14,21 +14,58 @@
 // pooled [B, H/2, W/2, 32] tensor is written.  Two kernels, one per
 // input type.
 //
-// f32 (input_stage_kernel<float>), bound on the H100: operations.  At
-// batch 32 and 448 px the work is 11.1 GFLOP (32 * 448^2 * 32 * 27 * 2)
-// against 0.28 GB of traffic (f32 input read plus pooled output write):
-// 0.166 ms on the f32 CUDA cores (67 TFLOP/s) against 0.085 ms at 3.35
-// TB/s.  TF32 tensor cores stay off: the f32 path keeps f32 products.
+// f32 (input_stage_tf32x3_kernel), bound on the H100: bytes.  At batch
+// 32 and 448 px it moves 77.1 MB of f32 frames in and 205.5 MB of pooled
+// f32 out: 0.0844 ms at 3.35 TB/s.  The conv is 11.1 GFLOP (32 * 448^2 *
+// 32 * 27 * 2): 0.166 ms on the f32 CUDA cores (67 TFLOP/s), where the
+// first kernel, scalar FMAs, took 0.42 ms.  So the products run on the
+// TF32 tensor cores as a split-precision ("3xTF32") product that keeps
+// the f32 band: each operand a is split into hi = tf32(a) (rounded to
+// nearest, ties away, as cvt.rna) and lo = tf32(a - hi) (a - hi is
+// exact in f32), and a b is taken as
+// a_lo b_hi + a_hi b_lo + a_hi b_hi, the two small products first, into
+// one f32 accumulator.  The term dropped, a_lo b_lo, and the rounding of
+// lo are each about 2^-22 of |a b|: inside the band of rtol and atol
+// 1e-5 against the plain version (one-pass TF32, about 2^-11, is not).
+// Raw 0-255 pixels, as the serving path feeds them, are exact in TF32,
+// so x_lo = 0 there and only the weights' split rounds.  The three
+// products are 3 x 11.1 GFLOP: 0.067 ms at TF32's 495 TFLOP/s, under
+// the bytes bound.  (cuDNN and cuBLAS keep TF32 off: device.py.)  On an
+// H100 SXM at 700 W the kernel takes 0.21 ms (chip_smoke.py phase 6),
+// at the pace of its 48 mma.sync a 16 pixels (36 of k 8, 12 of k 4),
+// not of its bytes.
 //
-// Design: a block of 256 threads owns a tile of 2 pooled rows x 32
-// pooled columns x all 32 channels.  It stages the tile's input halo
-// (6 x 66 pixels x 3 channels, zero outside the image: the conv's
-// padding) and the 864 weights in shared memory.  Warp w takes pooled
-// row w / 4 and output channels 8 * (w % 4) .. +7; its lane is the
-// pooled column.  Each thread keeps its 4x4x3 input patch in registers
-// and 4 phases x 8 channels of f32 accumulators; all lanes of a warp
-// read the same weights, so shared-memory weight loads are broadcasts.
-// Accumulation is f32; the output is stored as 16-byte packs.
+// Design, on the bf16 kernel's skeleton (below):
+// - M is 16 full-resolution pixels per mma.sync m16n8k8 (tf32 operands,
+//   f32 accumulation), row 8 di + 2 w + dj phase (di, dj) of pooled
+//   pixel w of 4, so the pool stays in registers as in the bf16 kernel.
+//   N is the 32 channels (4 n-tiles of 8).  K is the 27 taps in HWIO
+//   order (row u of the window: 9 contiguous f32 values in NHWC) as three
+//   k-steps of 8 and one m16n8k4 step for taps 24..26 and a zero 28th
+//   column: 28 columns, not 32.
+// - im2col in registers: in f32 every tap is one aligned 32-bit word, so
+//   the bf16 kernel's second, shifted halo copy is not needed; a lane's
+//   7 K columns (t + 4 i) are 7 word offsets into the halo, computed
+//   once.  Each A value is one shared load, then the split: two integer
+//   operations for hi, a subtract, two more for lo.  Only the two
+//   k-steps that cross a window row meet 2-way bank conflicts.
+// - Registers: the B fragments, hi and lo, are 56 words a lane, loaded
+//   and split once a block from w.  With 16 accumulators and one k-step
+//   of A at a time the kernel fits in 128 registers (127, no spills,
+//   with the m-tile loop unrolled twice): 2 blocks (16 warps) an SM.
+//   Capped at 80 registers for 3 blocks it spills and runs slower.
+// - Shared memory: the halo of a row tile, 18 rows x 72 pixels (864
+//   bytes a row), twice: 31 KB of double buffer, filled by cp.async (16-
+//   byte vectors when W2 % 4 == 0 and x is 16-byte aligned, 4-byte
+//   words otherwise; zeros outside the image by the copy's source size),
+//   the next row tile's halo in flight during a tile's products.  No
+//   output stage: after the pool a lane holds 2 adjacent channels in
+//   each of 2 groups of 8, so each 8-byte store of a warp fills 8 whole
+//   32-byte sectors; the stage that the bf16 kernel needs to fill its
+//   sectors would cost 32 KB and two barriers a tile here.
+// - Tiling as the bf16 kernel's: a warp owns 1 pooled row x 32 pooled
+//   columns (8 m-tiles), a block 8 warps and 4 row tiles one after
+//   another; the ragged edge is masked.
 //
 // bf16 (input_stage_mma_kernel), bound on the H100: bytes.  The same
 // batch moves 38.5 MB of bf16 frames in and 102.8 MB of pooled bf16
@@ -78,115 +115,6 @@ namespace {
 
 constexpr int kCin = 3;
 constexpr int kCout = 32;
-constexpr int kTaps = 3 * 3 * kCin;   // 27
-constexpr int kTileRows = 2;          // pooled rows per block
-constexpr int kTileCols = 32;         // pooled columns per block (= lanes)
-constexpr int kGroups = 4;            // channel groups of 8
-constexpr int kHaloRows = 2 * kTileRows + 2;
-constexpr int kHaloCols = 2 * kTileCols + 2;
-constexpr int kThreads = 32 * kTileRows * kGroups;  // 256
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-input_stage_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias, T* __restrict__ out,
-                   int H2, int W2, float slope) {
-  __shared__ float s_x[kHaloRows][kHaloCols][kCin];
-  __shared__ __align__(16) float s_w[kTaps * kCout];
-  __shared__ float s_b[kCout];
-
-  const int Ho = H2 / 2, Wo = W2 / 2;
-  const int p0 = blockIdx.y * kTileRows, q0 = blockIdx.x * kTileCols;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < kTaps * kCout; i += kThreads) s_w[i] = w[i];
-  if (tid < kCout) s_b[tid] = bias[tid];
-
-  // halo: full-res rows 2*p0-1 .. 2*p0+2*kTileRows, cols 2*q0-1 ..;
-  // each halo row is one contiguous run of kHaloCols*kCin values
-  const T* xb = x + int64_t(b) * H2 * W2 * kCin;
-  const int r0 = 2 * p0 - 1, c0 = 2 * q0 - 1;
-  for (int i = tid; i < kHaloRows * kHaloCols * kCin; i += kThreads) {
-    const int r = i / (kHaloCols * kCin);
-    const int rem = i - r * (kHaloCols * kCin);
-    const int col = rem / kCin, ch = rem - col * kCin;
-    const int gr = r0 + r, gc = c0 + col;
-    float v = 0.f;
-    if (gr >= 0 && gr < H2 && gc >= 0 && gc < W2)
-      v = cyt::to_f(xb[(int64_t(gr) * W2 + gc) * kCin + ch]);
-    s_x[r][col][ch] = v;
-  }
-  __syncthreads();
-
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = warp % kGroups, tr = warp / kGroups;
-  const int p = p0 + tr, q = q0 + lane;
-  if (p >= Ho || q >= Wo) return;
-
-  float xin[4][4][kCin];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < kCin; ++c)
-        xin[i][j][c] = s_x[2 * tr + i][2 * lane + j][c];
-
-  float acc[4][8];
-#pragma unroll
-  for (int ph = 0; ph < 4; ++ph)
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[ph][k] = 0.f;
-
-  const float4* w4 = reinterpret_cast<const float4*>(s_w);
-#pragma unroll
-  for (int u = 0; u < 3; ++u)
-#pragma unroll
-    for (int v = 0; v < 3; ++v)
-#pragma unroll
-      for (int c = 0; c < kCin; ++c) {
-        const int t = (u * 3 + v) * kCin + c;  // HWIO tap index
-        const float4 wa = w4[t * (kCout / 4) + 2 * g];
-        const float4 wb = w4[t * (kCout / 4) + 2 * g + 1];
-        const float wk[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-        for (int di = 0; di < 2; ++di)
-#pragma unroll
-          for (int dj = 0; dj < 2; ++dj) {
-            const float xv = xin[di + u][dj + v][c];
-#pragma unroll
-            for (int k = 0; k < 8; ++k)
-              acc[di * 2 + dj][k] = fmaf(xv, wk[k], acc[di * 2 + dj][k]);
-          }
-      }
-
-  // max over the pool window, then the bias (adding a constant commutes
-  // with max under monotone rounding), then leaky
-  cyt::Pack<T, 8> r;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    float m = acc[0][k];
-    m = acc[1][k] > m ? acc[1][k] : m;
-    m = acc[2][k] > m ? acc[2][k] : m;
-    m = acc[3][k] > m ? acc[3][k] : m;
-    r.v[k] = cyt::from_f<T>(cyt::leaky(m + s_b[8 * g + k], slope));
-  }
-  T* o = out + ((int64_t(b) * Ho + p) * Wo + q) * kCout + 8 * g;
-  if constexpr (sizeof(T) == 2) {
-    *reinterpret_cast<cyt::Pack<T, 8>*>(o) = r;
-  } else {
-    auto* o4 = reinterpret_cast<cyt::Pack<T, 4>*>(o);
-    cyt::Pack<T, 4> lo, hi;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      lo.v[k] = r.v[k];
-      hi.v[k] = r.v[4 + k];
-    }
-    o4[0] = lo;
-    o4[1] = hi;
-  }
-}
 
 // ---------------------------------------------------------------- bf16
 
@@ -479,14 +407,254 @@ input_stage_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------- f32
+
+// a halo row in shared memory: full-resolution columns 2 q0 - 4 ..
+// 2 q0 + 67 (72 pixels, 216 words: 54 aligned 16-byte vectors); the
+// halo proper starts at column 2 q0 - 1, pixel kF32Left of the row
+constexpr int kF32Words = (2 * kMmaCols + 8) * kCin;  // 216
+constexpr int kF32Vecs = kF32Words / 4;               // 54
+constexpr int kF32Left = 3;
+constexpr int kF32Halo = kMmaRows * kF32Words;        // words a buffer
+constexpr int kF32Taps = 27;
+
+// cvt.rna.tf32.f32 as two integer operations: add half a TF32 ulp to
+// the magnitude's bits, clear the 13 bits that TF32 drops (the kernel
+// ran faster so than with the cvt instruction, whose lowering is longer)
+__device__ __forceinline__ uint32_t tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo to about 2^-22 of |v|: hi = tf32(v), lo = tf32(v - hi)
+// (v - hi is exact in f32)
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  lo = tf32(v - __uint_as_float(hi));
+}
+
+// d += A B on the tensor cores, TF32 operands, f32 accumulation.
+// m16n8k8: A 16 x 8 (a0: row l / 4, a1: row l / 4 + 8, column l % 4;
+// a2, a3: the same rows, column + 4), B 8 x 8 (b0: row l % 4, b1: row
+// + 4; column l / 4); m16n8k4: a0, a1 and b0 alone.  d as in
+// mma_bf16_m16n8k16.
+__device__ __forceinline__ void mma_tf32_m16n8k8(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_tf32_m16n8k4(float (&d)[4],
+                                                 const uint32_t (&a)[2],
+                                                 uint32_t b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// cp.async of `bytes` (4 or 16) from src to dst, or zeros when !in
+template <int bytes>
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool in) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                 :: "r"(s), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+
+// Start copying the halo of the row tile at pooled row p0 into buf (one
+// cp.async group); zeros outside the image: the conv's padding.  With
+// W2 % 4 == 0 the row pitch, the segment's start and the image's edges
+// all fall on multiples of 48 bytes, so a 16-byte vector is wholly in or
+// out of the image.
+__device__ __forceinline__ void halo_copy_f32(float* buf, const float* xb,
+                                              int p0, int q0, int H2,
+                                              int W2, bool vec) {
+  const int64_t row_words = int64_t(W2) * kCin;
+  if (vec) {
+    const int seg0 = (2 * q0 - 1 - kF32Left) * kCin;
+    for (int i = threadIdx.x; i < kMmaRows * kF32Vecs; i += kMmaThreads) {
+      const int r = i / kF32Vecs, j = i - r * kF32Vecs;
+      const int gr = 2 * p0 - 1 + r, off = seg0 + 4 * j;
+      const bool in = gr >= 0 && gr < H2 && off >= 0 && off + 4 <= row_words;
+      copy_async<16>(buf + r * kF32Words + 4 * j,
+                     in ? xb + gr * row_words + off : xb, in);
+    }
+  } else {
+    // the halo proper, columns 2 q0 - 1 .. 2 q0 + 64, word by word
+    constexpr int kVals = (2 * kMmaCols + 2) * kCin;  // 198
+    const int w0 = (2 * q0 - 1) * kCin;
+    for (int i = threadIdx.x; i < kMmaRows * kVals; i += kMmaThreads) {
+      const int r = i / kVals, rem = i - r * kVals;
+      const int gr = 2 * p0 - 1 + r, gw = w0 + rem;
+      const bool in = gr >= 0 && gr < H2 && gw >= 0 && gw < row_words;
+      copy_async<4>(buf + r * kF32Words + kF32Left * kCin + rem,
+                    in ? xb + gr * row_words + gw : xb, in);
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Block (x, y, b): pooled columns 32 x .. 32 x + 31 of image b, row tiles
+// kTilesPerBlock y .. (8 pooled rows each), one after the other, the
+// next tile's halo in flight during a tile's products.
+__global__ void __launch_bounds__(kMmaThreads, 2)
+input_stage_tf32x3_kernel(const float* __restrict__ x,
+                          const float* __restrict__ w,
+                          const float* __restrict__ bias,
+                          float* __restrict__ out, int H2, int W2,
+                          float slope, bool vec) {
+  __shared__ __align__(16) float s_x[2][kF32Halo];
+
+  const int Ho = H2 / 2, Wo = W2 / 2;
+  const int q0 = blockIdx.x * kMmaCols, b = blockIdx.z;
+  const int tile0 = blockIdx.y * kTilesPerBlock;
+  const int n_tiles = min(kTilesPerBlock,
+                          (Ho + kMmaWarps - 1) / kMmaWarps - tile0);
+  const float* xb = x + int64_t(b) * H2 * W2 * kCin;
+
+  // tiles 0 and 1 in flight (an empty group when there is no tile 1)
+  halo_copy_f32(s_x[0], xb, tile0 * kMmaWarps, q0, H2, W2, vec);
+  if (n_tiles > 1)
+    halo_copy_f32(s_x[1], xb, (tile0 + 1) * kMmaWarps, q0, H2, W2, vec);
+  else
+    asm volatile("cp.async.commit_group;" ::: "memory");
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // M row 8 di + 2 wp + dj holds phase (di, dj) of the tile's pooled
+  // pixel wp: this lane has rows g and g + 8, pixel g >> 1, column
+  // phase dj = g & 1 and both row phases; its partner lane ^ 4 has the
+  // other column phase
+  const int dj = g & 1;
+
+  // B fragments, split: K column k is HWIO tap k (w is [27, 32] row-
+  // major; K 27 is zero), column n = 8 nt + g; k-steps s of 8 (b0: k =
+  // 8 s + t, b1: k + 4) and the m16n8k4 step (k = 24 + t)
+  uint32_t bh[3][4][2], bl[3][4][2], bh4[4], bl4[4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const float* wn = w + 8 * nt + g;
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        split(__ldg(wn + (8 * s + 4 * e + t) * kCout), bh[s][nt][e],
+              bl[s][nt][e]);
+    split(t < 3 ? __ldg(wn + (24 + t) * kCout) : 0.f, bh4[nt], bl4[nt]);
+  }
+  // after the pool exchange a lane keeps n-tiles 2 dj and 2 dj + 1,
+  // channels 2 t and 2 t + 1 of each
+  float bj[2][2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      bj[j][e] = __ldg(bias + 8 * (2 * dj + j) + 2 * t + e);
+
+  // the lane's K columns k = t + 4 i: window row u = k / 9, value k % 9
+  // of it; word offsets in a halo buffer at m-tile 0, row phase 0 (K 27,
+  // lane t = 3's last, reads tap 0's word and is zeroed)
+  int tap[7];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    const int k = t + 4 * i < kF32Taps ? t + 4 * i : 0;
+    tap[i] = (2 * warp + k / 9) * kF32Words + (g + kF32Left) * kCin + k % 9;
+  }
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int p = (tile0 + tile) * kMmaWarps + warp;
+    // this tile's group has landed (the next one may still be in flight)
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncthreads();
+    const float* hx = s_x[tile & 1];
+
+    if (p < Ho) {
+      float* orow = out + (int64_t(b) * Ho + p) * Wo * kCout;
+#pragma unroll 2
+      for (int mt = 0; mt < kMTiles; ++mt) {
+        const float* am = hx + mt * 8 * kCin;  // 8 columns an m-tile
+        float acc[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+        // A: rows g (di 0) and g + 8 (di 1), one full-res row apart
+#pragma unroll
+        for (int s = 0; s < 3; ++s) {
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split(am[tap[2 * s + (e >> 1)] + (e & 1) * kF32Words], ah[e],
+                  al[e]);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            mma_tf32_m16n8k8(acc[nt], al, bh[s][nt]);
+            mma_tf32_m16n8k8(acc[nt], ah, bl[s][nt]);
+            mma_tf32_m16n8k8(acc[nt], ah, bh[s][nt]);
+          }
+        }
+        {
+          uint32_t ah[2], al[2];
+#pragma unroll
+          for (int di = 0; di < 2; ++di)
+            split(t < 3 ? am[tap[6] + di * kF32Words] : 0.f, ah[di], al[di]);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            mma_tf32_m16n8k4(acc[nt], al, bh4[nt]);
+            mma_tf32_m16n8k4(acc[nt], ah, bl4[nt]);
+            mma_tf32_m16n8k4(acc[nt], ah, bh4[nt]);
+          }
+        }
+
+        // row phase within the lane, column phase with lane ^ 4; the
+        // lane keeps n-tiles 2 dj + j and sends its partner the others
+        const int pix = 4 * mt + (g >> 1);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float r[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float lo = fmaxf(acc[j][e], acc[j][2 + e]);
+            const float hi = fmaxf(acc[j + 2][e], acc[j + 2][2 + e]);
+            const float mine = dj ? hi : lo, send = dj ? lo : hi;
+            const float m =
+                fmaxf(mine, __shfl_xor_sync(0xffffffffu, send, 4));
+            r[e] = cyt::leaky(m + bj[j][e], slope);
+          }
+          if (q0 + pix < Wo)
+            *reinterpret_cast<float2*>(orow + (q0 + pix) * kCout +
+                                       8 * (2 * dj + j) + 2 * t) =
+                make_float2(r[0], r[1]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+    // tile + 2 into it (an empty group past the last tile)
+    if (tile + 2 < n_tiles)
+      halo_copy_f32(s_x[tile & 1], xb, (tile0 + tile + 2) * kMmaWarps, q0,
+                    H2, W2, vec);
+    else
+      asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+}
+
 void launch_f32(const void* x, const float* w, const float* b, void* out,
                 int B, int H2, int W2, float slope, cudaStream_t stream) {
   const int Ho = H2 / 2, Wo = W2 / 2;
-  dim3 grid((Wo + kTileCols - 1) / kTileCols,
-            (Ho + kTileRows - 1) / kTileRows, B);
-  input_stage_kernel<float><<<grid, kThreads, 0, stream>>>(
+  const int row_tiles = (Ho + kMmaWarps - 1) / kMmaWarps;
+  dim3 grid((Wo + kMmaCols - 1) / kMmaCols,
+            (row_tiles + kTilesPerBlock - 1) / kTilesPerBlock, B);
+  input_stage_tf32x3_kernel<<<grid, kMmaThreads, 0, stream>>>(
       static_cast<const float*>(x), w, b, static_cast<float*>(out), H2, W2,
-      slope);
+      slope, W2 % 4 == 0 && cyt::aligned16(x));
 }
 
 void launch_bf16(const void* x, const float* w, const float* b, void* out,

@@ -56,8 +56,8 @@ def test_pool_kernel_refuses_non_nhwc(card):
 
 
 # K2 at 448 px (16-byte halo loads), then ragged: pooled 33 x 65 with
-# W2 % 8 != 0 (16-bit halo loads) and pooled 33 x 68 with 16-byte
-# loads; neither fills the kernels' tiles, and a bf16 block walks 4 row
+# W2 % 4 != 0 (scalar halo loads) and pooled 33 x 68 with 16-byte
+# loads; neither fills the kernels' tiles, and a block walks 4 row
 # tiles then 1
 INPUT_STAGE_SHAPES = [(2, 448, 448, 3), (3, 66, 130, 3), (2, 66, 136, 3)]
 
@@ -72,11 +72,45 @@ def _input_stage_operands(card, shape):
 @pytest.mark.parametrize("shape", INPUT_STAGE_SHAPES)
 def test_input_stage_kernel_matches_plain(card, shape):
     x, w, b = _input_stage_operands(card, shape)
+    # NaN wherever the kernel would read shared memory it never wrote
+    _build.fill_shared_memory(float("nan"))
     got = ist.input_stage(x, w, b)
+    torch.cuda.synchronize()
     wp, bp = ist.phase_kernel(w, b)
-    # f32, 27-term sums in another order
+    # f32 as 3xTF32 on the tensor cores (split operands, ~2^-22 each),
+    # 27-term sums in another order
     torch.testing.assert_close(got, ist.input_stage_apply(x, wp, bp, 32),
                                rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, ist.input_stage(x, w, b))
+
+
+def _pixel_operands(card, shape):
+    """0-255 integer frames, as the serving path feeds them, and conv1 at
+    the serving slice's scale: He-normal weights with BN folded from the
+    frames' own statistics (unit-scale outputs from cancelling sums)."""
+    x = torch.randint(0, 256, shape, generator=card, device="cuda").float()
+    w0 = (torch.randn((3, 3, 3, 32), generator=card, device="cuda",
+                      dtype=torch.float64) * (2 / 27) ** 0.5)
+    y = torch.nn.functional.conv2d(x.double().permute(0, 3, 1, 2),
+                                   w0.permute(3, 2, 0, 1), padding=1)
+    scale = (y.var((0, 2, 3)) + 1e-5).rsqrt()
+    return (x, (w0 * scale).float().contiguous(),
+            (-y.mean((0, 2, 3)) * scale).float())
+
+
+@pytest.mark.parametrize("shape", INPUT_STAGE_SHAPES)
+def test_input_stage_f32_kernel_on_pixels(card, shape):
+    x, w, b = _pixel_operands(card, shape)
+    _build.fill_shared_memory(float("nan"))
+    got = ist.input_stage(x, w, b)
+    torch.cuda.synchronize()
+    want = ist.input_stage_apply(
+        x.double(), *ist.phase_kernel(w.double(), b.double()), 32)
+    # the f32 band, atol 1e-5 of the largest output: the sums cancel from
+    # ~10 to ~1 (x is exact in TF32; only the weights' split rounds)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, ist.input_stage(x, w, b))
 
 
 @pytest.mark.parametrize("shape", INPUT_STAGE_SHAPES)

@@ -142,6 +142,75 @@ def test_input_stage_one_rounding_bf16_matches_pallas_interpret():
                                atol=1e-5)
 
 
+# K2 f32's arithmetic on the card: each operand a split into hi =
+# tf32(a) and lo = tf32(a - hi), and a b taken as a_lo b_hi + a_hi b_lo +
+# a_hi b_hi ("3xTF32", csrc/input_stage.cu), emulated here
+
+def _tf32(a):
+    """cvt.rna.tf32.f32 on the f32 bit pattern: add half a TF32 ulp
+    (0x1000) and clear the low 13 bits."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(
+        np.float32)
+
+
+def _split(a):
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)  # a - hi is exact in f32
+
+
+def _input_stage_f64(x, w, b):
+    wp, bp = ist.phase_kernel(torch.from_numpy(w.astype(np.float64)),
+                              torch.from_numpy(b.astype(np.float64)))
+    return ist.input_stage_apply(torch.from_numpy(x.astype(np.float64)),
+                                 wp, bp, w.shape[-1]).numpy()
+
+
+def _input_stage_3xtf32(x, w, b):
+    """conv-pool-leaky on the split operands: the three products as one
+    conv over 9 input channels (x_lo, x_hi, x_hi against w_hi, w_lo,
+    w_hi), summed in f64, where each TF32 product is exact."""
+    (xh, xl), (wh, wl) = _split(x), _split(w)
+    return _input_stage_f64(np.concatenate([xl, xh, xh], axis=-1),
+                            np.concatenate([wh, wl, wh], axis=2), b)
+
+
+def _pixel_operands(rng, shape):
+    """0-255 integer frames and conv1 at the serving slice's scale:
+    He-normal weights with BN folded from the frames' own statistics,
+    so unit-scale outputs come out of sums that cancel from ~10."""
+    x = rng.randint(0, 256, shape).astype(np.float32)
+    w0 = rng.randn(3, 3, 3, 32) * (2 / 27) ** 0.5
+    y = torch.nn.functional.conv2d(
+        torch.from_numpy(x.astype(np.float64)).permute(0, 3, 1, 2),
+        torch.from_numpy(w0).permute(3, 2, 0, 1), padding=1)
+    scale = 1 / np.sqrt(y.var((0, 2, 3)).numpy() + 1e-5)
+    return (x, (w0 * scale).astype(np.float32),
+            (-y.mean((0, 2, 3)).numpy() * scale).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["uniform", "pixels"])
+def test_input_stage_3xtf32_split_keeps_f32_band(case):
+    rng = np.random.RandomState(5)
+    if case == "uniform":
+        x = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+        w = (0.3 * rng.randn(3, 3, 3, 32)).astype(np.float32)
+        b = rng.randn(32).astype(np.float32)
+    else:
+        x, w, b = _pixel_operands(rng, (2, 32, 32, 3))
+        # raw pixels are exact in TF32: only the weights' split rounds
+        assert not _split(x)[1].any()
+    want = _input_stage_f64(x, w, b)
+    # the kernel's band: rtol 1e-5 and atol 1e-5, on 0-255 frames 1e-5 of
+    # the largest output (the sums cancel from ~10 to ~1 there)
+    atol = 1e-5 if case == "uniform" else 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(_input_stage_3xtf32(x, w, b), want,
+                               rtol=1e-5, atol=atol)
+    # one-pass TF32 (a_hi b_hi alone) keeps ~11 bits: outside the band
+    one = _input_stage_f64(_tf32(x), _tf32(w), b)
+    assert not np.allclose(one, want, rtol=1e-5, atol=atol)
+
+
 def test_wrappers_reject_unsupported_devices():
     x = torch.empty((1, 4, 4, 3), device="meta")
     w = torch.empty((3, 3, 3, 32), device="meta")
