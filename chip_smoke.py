@@ -5,8 +5,9 @@
 
 Run from the repository root on a machine with a card and nvcc.  Phases
 (any failure ends the run with a non-zero exit; nothing is caught; each
-path of phases 5, 8, 11, 13 and 15-17 runs with all four kernels' launch
-counts set to 0 just before it, and is checked on all four just after):
+path of phases 5, 8, 11, 13, 15-17 and 18-20 runs with all four kernels'
+launch counts set to 0 just before it, and is checked on all four just
+after):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the kernels (csrc/*.cu -> build/kernels/) and print the time;
@@ -114,17 +115,45 @@ counts set to 0 just before it, and is checked on all four just after):
    then the fused pipeline (`dark_class_pred(device_crop=True)`,
    max_crops 16), f32 and bf16: K3 once per detector batch (capsule),
    frames/s, and class scores within K3's bands of the same composition
-   with the plain routing.
+   with the plain routing;
+18. darknet_d serving (experiments/darknet_d/params.json: 448 px, B=2,
+   C=0, batch 32) through `dark_pred` over 64 synthetic scenes, a
+   seeded DarkNet(2, 0) with BN statistics set as phase 5's, f32 and
+   bf16: K2 once and K1 four times per batch, y_hat against eval-mode
+   DarkNet in phase 5's bands, the f32 boxes equal; serving img/s with
+   the profile (kernel time by group, device busy);
+19. darknet_d training through `train_and_evaluate` (64/16 scenes, 2
+   epochs, f32 then bf16; --mode overfit's 3/3; one fine-tune epoch from
+   an npz, blocks 1-18 frozen): no kernel launch, the loss falls, the
+   "train/test avg iou" lines, finite non-zero gradients, each trained
+   last.ckpt served as in phase 18; the step's ms beside its operation
+   bound, with the profile; `dark_class_pred` on phase 18's detector
+   with phase 15's ConvNet (host path) and phase 8's CapsuleNet (host
+   and fused): K2 x1, K1 x4 per detector batch, K3 per 64 crops (host)
+   or per detector batch (fused), and the JAX package's nan / 0.0
+   combine metrics;
+20. darkcapsule (experiments/darkcapsule/params.json: n_grid 7, 224 px,
+   batch 32) through `train_and_evaluate` (64/16 scenes, 2 epochs, f32
+   then bf16): no kernel launch (its one-capsule routing is the closed
+   form), the loss falls, the route weights and every conv weight with
+   finite non-zero gradients; the step's ms beside its operation bound
+   with the profile, the eval forward's img/s; the f32-trained model's
+   forward on the card against the CPU's (atol 1e-4); the CLI's predict
+   writes its empty metric file.
 
-The line before the last is the JSON ``{"kernels": [...]}``; the last
+The kernels line's K1 and K2 launches count phases 5 and 18.  The line
+before the last is the JSON ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
+import contextlib
+import io
 import json
 import os
 import shutil
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -132,14 +161,16 @@ import torch.nn.functional as F
 
 # the port sits beside this script; alone, the script stops here
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import (
-    Params, losses, predict)
+    Params, __main__ as cli, losses, predict)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import loader
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
     resolve_device)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.metrics import (
     classification as clsm, detection as det)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
-    DARKNET_LAYERS, CapsuleNet, ConvNet, DarkNet)
+    DARKNET_LAYERS, CapsuleNet, ConvNet, DarkCapsuleNet, DarkNet)
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models.darkcapsule \
+    import DARKCAPSULE_LAYERS
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
     _build, boxes as box_ops, capsule as caps, crop, decode,
     input_stage as ist, pool, routing)
@@ -384,15 +415,16 @@ def check_input_stage():
     return out
 
 
-def seeded_darknet(frames_u8, seed=0):
-    """Full-width darknet_r with weights from a torch.Generator.
+def seeded_darknet(frames_u8, seed=0, n_boxes=1, n_classes=43):
+    """Full-width DarkNet (darknet_r's head by default, darknet_d's with
+    n_boxes=2, n_classes=0) with weights from a torch.Generator.
 
     Convs get He-normal weights; BN scale/bias are random; BN running
     statistics are measured on a few scenes and then randomly perturbed,
     so every layer sees unit-scale activations and the fold is not
     trivial; the head's scale spreads confidences over (0, 1)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    model = DarkNet(n_boxes=1, n_classes=43).cuda()
+    model = DarkNet(n_boxes=n_boxes, n_classes=n_classes).cuda()
     with torch.no_grad():
         for name, t in model.named_parameters():
             if name.endswith("conv_19.weight"):
@@ -421,17 +453,25 @@ def seeded_darknet(frames_u8, seed=0):
     return model
 
 
-def compare_boxes(boxes, want, y_hat, ref, th, tol):
-    """The f32 box lists against the reference's, cell by cell.
+def box_conf(y, n_boxes):
+    """The confidences (b, g, g, B) of a (b, g, g, 5B + C) grid."""
+    return y[..., :5 * n_boxes].reshape(y.shape[:3] + (n_boxes, 5))[..., 0]
 
-    Cells whose reference confidence lies within ``tol`` of the
+
+def compare_boxes(boxes, want, y_hat, ref, th, tol, n_boxes=1,
+                  n_classes=43):
+    """The f32 box lists against the reference's, candidate by candidate
+    (cell and box, the lists' grid-scan order).
+
+    Candidates whose reference confidence lies within ``tol`` of the
     threshold may fall either way and are left out (and counted); all
     others must be kept or dropped alike, with the same image, order and
-    corners, and the same class unless the reference's top two class
-    scores tie within ``tol``.  Returns (boxes compared, cells left out,
-    classes differing at ties)."""
-    near = np.abs(ref[..., 0] - th) <= tol
-    got_valid, want_valid = y_hat[..., 0] > th, ref[..., 0] > th
+    corners, and the same class (when C > 0) unless the reference's top
+    two class scores tie within ``tol``.  Returns (boxes compared,
+    candidates left out, classes differing at ties)."""
+    conf_ref = box_conf(ref, n_boxes)
+    near = np.abs(conf_ref - th) <= tol
+    got_valid, want_valid = box_conf(y_hat, n_boxes) > th, conf_ref > th
     require(np.array_equal(got_valid[~near], want_valid[~near]),
             "kept boxes differ away from the threshold")
     keep_got, keep_want = ~near[got_valid], ~near[want_valid]
@@ -439,23 +479,28 @@ def compare_boxes(boxes, want, y_hat, ref, th, tol):
             "box image indices or order differ")
     require(np.allclose(boxes[1][keep_got], want[1][keep_want], rtol=0,
                         atol=1e-2), "box corners differ beyond 0.01 px")
-    top2 = np.sort(ref[..., 5:], axis=-1)[..., -2:]
-    tied = ((top2[..., 1] - top2[..., 0]) <= tol)[want_valid][keep_want]
+    if n_classes == 0:
+        require(boxes[2] is None and want[2] is None, "classes at C = 0")
+        return int(keep_want.sum()), int(near.sum()), 0
+    top2 = np.sort(ref[..., 5 * n_boxes:], axis=-1)[..., -2:]
+    tied = np.broadcast_to(((top2[..., 1] - top2[..., 0]) <= tol)[..., None],
+                           near.shape)[want_valid][keep_want]
     differ = boxes[2][keep_got] != want[2][keep_want]
     require(not (differ & ~tied).any(), "box classes differ beyond ties")
     return int(keep_want.sum()), int(near.sum()), int(differ.sum())
 
 
 def run_slice(frames, y_true, model_dir, params):
-    """Phase 5: darknet_r through dark_pred, f32 then bf16; returns each
-    run's launch counts."""
+    """Phase 5 (darknet_r) and 18 (darknet_d): the detector of ``params``
+    through dark_pred, f32 then bf16; returns each run's launch counts."""
+    nb, nc = int(params.n_boxes), int(params.n_classes)
     model = predict.restore_darknet(params, model_dir, "last").cuda()
     with torch.no_grad():
         ref = torch.cat([model(torch.from_numpy(frames[i:i + BATCH]).cuda()
                                .float()) for i in range(0, len(frames),
                                                         BATCH)])
     ref_np = ref.cpu().numpy()
-    conf = ref_np[..., 0].ravel()
+    conf = box_conf(ref_np, nb).ravel()
     runs = {}
     print(f"[slice] reference confidences: min {conf.min()} max "
           f"{conf.max()} mean {conf.mean()}")
@@ -484,27 +529,32 @@ def run_slice(frames, y_true, model_dir, params):
         if dtype == "float32":
             require(err.max() <= 5e-4, "f32 y_hat outside atol 5e-4")
             want = decode.to_flat_host(
-                decode.decode_grid(ref, n_classes=43, n_boxes=1,
+                decode.decode_grid(ref, n_classes=nc, n_boxes=nb,
                                    img_size=448),
                 image_hw=np.array([f.shape[:2] for f in frames]),
-                img_size=448)
+                img_size=448, with_classes=nc != 0)
             n, n_near, n_tied = compare_boxes(boxes, want, y_hat, ref_np,
-                                              0.5, 2 * float(err.max()))
+                                              0.5, 2 * float(err.max()),
+                                              nb, nc)
             print(f"[slice] f32 box lists equal: {n} boxes compared, "
-                  f"{n_near} cells within {2 * err.max()} of the threshold "
-                  f"left out, {n_tied} classes differing at tied scores")
+                  f"{n_near} candidates within {2 * err.max()} of the "
+                  f"threshold left out, {n_tied} classes differing at tied "
+                  "scores")
         else:
             # per channel group: the confidence (sigmoid, mean ~0.57)
             # carries most of the drift; the 43 class probabilities
             # (softmax, mean ~0.023) need a band of their own
-            groups = {"confidence": err[..., 0], "box": err[..., 1:5],
-                      "class": err[..., 5:]}
+            box_err = err[..., :5 * nb].reshape(err.shape[:3] + (nb, 5))
+            groups = {"confidence": box_err[..., 0],
+                      "box": box_err[..., 1:5]}
+            if nc:
+                groups["class"] = err[..., 5 * nb:]
             means = {k: float(v.mean()) for k, v in groups.items()}
             print(f"[slice] bf16: mean_abs_err by channel group {means}")
             require(err.max() < 0.15, "bf16 y_hat outside max 0.15")
-            for k, band in BF16_BANDS.items():
-                require(means[k] < band,
-                        f"bf16 {k} channels outside mean {band}")
+            for k, v in means.items():
+                require(v < BF16_BANDS[k],
+                        f"bf16 {k} channels outside mean {BF16_BANDS[k]}")
         ap, acc = (det.detect_AP(y_true, y_hat, params),
                    det.detect_acc(y_true, y_hat, params))
         require(np.isfinite(ap) and np.isfinite(acc), "metrics not finite")
@@ -629,18 +679,19 @@ def profile_ms(fn, wall_ms, iters=5, groups=GROUPS, top=10):
               f"{t * iters / count:8.4f}  {key[:100]}")
 
 
-def time_serving(model, frames):
+def time_serving(model, frames, name="darknet_r"):
     """Serving forward + decode at batch 32 on device-resident frames:
     CUDA-event wall time, then the profile of the same calls."""
+    nb, nc = model.n_boxes, model.n_classes
     sd = model.state_dict()
     x = torch.from_numpy(frames[:BATCH]).cuda().float()
     for dtype in (torch.float32, torch.bfloat16):
         p = ist.prepare_serving(sd, dtype)
 
         def fwd_decode():
-            y = ist.darknet_serving_apply(p, x, n_boxes=1, n_classes=43,
+            y = ist.darknet_serving_apply(p, x, n_boxes=nb, n_classes=nc,
                                           dtype=dtype)
-            return decode.decode_grid(y, n_classes=43, n_boxes=1,
+            return decode.decode_grid(y, n_classes=nc, n_boxes=nb,
                                       img_size=448)
 
         with torch.inference_mode():
@@ -651,9 +702,9 @@ def time_serving(model, frames):
                      f"; eval DarkNet forward (cuDNN, BN unfolded, no "
                      f"kernels) {ms_model:.3f} ms = "
                      f"{BATCH / ms_model * 1e3:.1f} img/s")
-            print(f"[time] serving forward+decode batch {BATCH} "
+            print(f"[time] {name} serving forward+decode batch {BATCH} "
                   f"{str(dtype)[6:]}: {ms:.3f} ms = "
-                  f"{BATCH / ms * 1e3:.1f} img/s{extra}")
+                  f"{BATCH / ms * 1e3:.1f} img/s{extra} ({SMI})")
             profile_ms(fwd_decode, ms)
 
 
@@ -1144,47 +1195,58 @@ def dark_train_params(dtype, **over):
     return p
 
 
-def dark_train(params, model_dir, seed=0):
-    """train_and_evaluate on the synthetic scenes; returns the train
-    losses and the launch counts of the run."""
+def dark_train(params, model_dir, seed=0, is_small=False):
+    """train_and_evaluate on the synthetic scenes (the overfit mode's 3/3
+    with ``is_small``); returns the train losses, the launch counts of
+    the run and its printout (echoed)."""
     os.makedirs(model_dir, exist_ok=True)
     np.random.seed(seed)
     reset_launches()
+    buf = io.StringIO()
     t0 = time.perf_counter()
-    driver.train_and_evaluate(params, os.path.join(model_dir, "nodata"),
-                              model_dir, seed=seed, device="cuda")
+    with contextlib.redirect_stdout(buf):
+        driver.train_and_evaluate(params, os.path.join(model_dir, "nodata"),
+                                  model_dir, is_small=is_small, seed=seed,
+                                  device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    text = buf.getvalue()
+    print(text, end="")
     losses_tr = np.load(os.path.join(model_dir, "losses_tr.npy"))
-    print(f"[dark_train] {params.compute_dtype}: train_and_evaluate, "
-          f"{params.n_epochs} epochs of {DARK_TRAIN_SCENES} + "
-          f"{DARK_EVAL_SCENES} scenes, seed {seed}, in {wall:.3f} s (host "
+    scenes = ((3, 3) if is_small
+              else (DARK_TRAIN_SCENES, DARK_EVAL_SCENES))
+    print(f"[dark_train] {params.model} {params.compute_dtype}: "
+          f"train_and_evaluate, {params.n_epochs} epochs of {scenes[0]} + "
+          f"{scenes[1]} scenes, seed {seed}, in {wall:.3f} s (host "
           f"clock, init, data and checkpoints included); launches "
           f"{launches}; train losses {losses_tr.tolist()}")
     require(sum(launches.values()) == 0,
             f"a kernel launched during training: {launches}")
     require(np.isfinite(losses_tr).all(), "train loss not finite")
-    return losses_tr, launches
+    return losses_tr, launches, text
 
 
 def check_dark_grads(params, x, y):
-    """Phase 13, on one batch: after a step every gradient is finite and
-    non-zero and every parameter finite."""
+    """Phases 13 and 19, on one batch: after a step every gradient is
+    finite and non-zero and every parameter finite."""
     cfg = losses.LossConfig.from_params(params)
-    model = DarkNet(n_boxes=1, n_classes=43, dropout=0.5,
+    model = DarkNet(n_boxes=int(params.n_boxes),
+                    n_classes=int(params.n_classes),
+                    dropout=float(params.dropout),
                     dtype=getattr(torch, params.compute_dtype),
                     seed=0).cuda().train()
     opt = steps.make_optimizer(model)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    loss, _, aux = steps.train_step(model, opt, x, y, 1e-3, cfg, "darknet_r",
+    loss, _, aux = steps.train_step(model, opt, x, y, 1e-3, cfg, params.model,
                                     gen)
     for name, p in model.named_parameters():
         require(torch.isfinite(p.grad).all() and p.grad.abs().max() > 0,
                 f"{params.compute_dtype}: gradient of {name} not finite or "
                 "all zero")
         require(torch.isfinite(p).all(), f"{name} not finite after a step")
-    print(f"[dark_train] {params.compute_dtype} one step on a batch of "
+    print(f"[dark_train] {params.model} {params.compute_dtype} one step on "
+          f"a batch of "
           f"{BATCH}: loss {loss.item()}, avg_iou {aux['avg_iou'].item()}; "
           f"all {len(list(model.parameters()))} gradients finite and "
           "non-zero")
@@ -1198,7 +1260,7 @@ def run_dark_train_slice(frames, y_true, x_np, y_np, root):
     for dtype in ("float32", "bfloat16"):
         params = dark_train_params(dtype)
         model_dir = os.path.join(root, dtype)
-        losses_tr, _ = dark_train(params, model_dir)
+        losses_tr = dark_train(params, model_dir)[0]
         require(losses_tr[-1] < losses_tr[0],
                 f"{dtype}: the train loss did not fall: {losses_tr}")
         check_dark_grads(params, torch.from_numpy(x_np).cuda().to(
@@ -1231,8 +1293,106 @@ def run_dark_train_slice(frames, y_true, x_np, y_np, root):
                                fine_tune=18, pretrained_weights=npz)
     model_dir = os.path.join(root, "fine_tune")
     dark_train(params, model_dir)
-    sd = ckpt.load_checkpoint(os.path.join(model_dir + "1",
-                                           "last.ckpt"))["state_dict"]
+    check_fine_tune(ckpt.load_checkpoint(os.path.join(
+        model_dir + "1", "last.ckpt"))["state_dict"], arrs,
+        DarkNet(n_boxes=1, n_classes=43, seed=0).model.conv_19.weight)
+    shutil.rmtree(model_dir + "1")
+    print("[dark_train] fine-tune from the npz, fine_tune 18: blocks 1-18 "
+          "equal to the npz to the bit, conv_19 moved, bn_1.running_mean "
+          "moved")
+    return out["float32"]
+
+
+def darknet_train_flop(size=448, n_out=5 + 43):
+    """FLOP of one image's forward and train step, the head with ``n_out``
+    channels: every conv forward and wgrad, every conv's dgrad but
+    conv_1's (the input takes no gradient)."""
+    fwd, hw, in_c = [], size, 3
+    for out_c, k, after in DARKNET_LAYERS:
+        fwd.append(2 * hw * hw * in_c * out_c * k * k)
+        in_c = out_c
+        if after == "mp":
+            hw //= 2
+    fwd.append(2 * hw * hw * in_c * n_out)
+    return sum(fwd), 3 * sum(fwd) - fwd[0]
+
+
+def time_dark_train_step(params, x_np, y_np):
+    """Phases 14 and 19: the train step of the detector of ``params``
+    (darknet_r, darknet_d) at batch 32, f32 and bf16: CUDA-event time per
+    step beside its operation bound, then the profile of the same calls;
+    returns {dtype: ms}."""
+    name, nb, nc = params.model, int(params.n_boxes), int(params.n_classes)
+    fwd, step_flop = darknet_train_flop(n_out=5 * nb + nc)
+    print(f"[time] {name} at 448 px: {fwd / 1e9:.2f} GFLOP per image "
+          f"forward, {step_flop * BATCH / 1e12:.3f} TFLOP per train step of "
+          f"{BATCH}")
+    cfg = losses.LossConfig.from_params(params)
+    y = torch.from_numpy(y_np[:BATCH]).cuda()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = DarkNet(n_boxes=nb, n_classes=nc,
+                        dropout=float(params.dropout), dtype=dtype,
+                        seed=0).cuda().train()
+        opt = steps.make_optimizer(model)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.from_numpy(x_np[:BATCH]).cuda().to(dtype)
+
+        def step():
+            return steps.train_step(model, opt, x, y, 1e-3, cfg, name, gen)
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(step, iters=10)
+        bound, by = bound_ms(0, step_flop * BATCH, dtype)
+        print(f"[time] {name} train step (forward with dropout "
+              f"{params.dropout}, dark_loss, backward, Adam) batch {BATCH} "
+              f"{str(dtype)[6:]}: {ms:.3f} ms = {BATCH / ms * 1e3:.1f} "
+              f"img/s; bound {bound:.3f} ms ({by}), {bound / ms:.3f} of it; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB ({SMI})")
+        profile_ms(step, ms, iters=3, groups=DARK_GROUPS, top=15)
+        out[dtype] = ms
+    return out
+
+
+def darknet_d_params(dtype, **over):
+    """darknet_d as in experiments/darknet_d/params.json (448 px, B=2,
+    C=0, batch 32, no dropout, fine_tune 18), for 2 epochs at lr 1e-3
+    (the CLI default), as the CLI's train mode sets it."""
+    p = Params(os.path.join(HERE, "experiments", "darknet_d", "params.json"),
+               model="darknet_d", n_epochs=TRAIN_EPOCHS, lr_runtime=1e-3,
+               eval_every=1, train_frac=1, summary=False,
+               compute_dtype=dtype)
+    p.__dict__.update(over)
+    require((p.batch_size, p.n_boxes, p.n_classes, p.n_grid,
+             p.darknet_input, p.dropout, p.fine_tune)
+            == (BATCH, 2, 0, 14, 448, 0.0, 18), "darknet_d config")
+    return p
+
+
+def run_darknet_d_serving(root):
+    """Phase 18: a seeded full-width darknet_d (B=2, C=0, BN statistics
+    from the scenes) through dark_pred, f32 and bf16 (phase 5's checks
+    and bands), then its serving time and profile.  Returns the scenes,
+    their grids, the checkpoint's dir and each run's launch counts."""
+    params = darknet_d_params("float32")
+    _, _, x, y_true = loader.synthetic_dataset("darknet_d", params, 0, 64)
+    frames = np.clip(x * 128.0 + 128, 0, 255).astype(np.uint8)
+    model_dir = os.path.join(root, "serve")
+    ckpt.save_checkpoint(
+        {"epoch": 0, "optim_dict": {},
+         "state_dict": seeded_darknet(frames, n_boxes=2,
+                                      n_classes=0).state_dict()},
+        False, model_dir)
+    runs = run_slice(frames, y_true, model_dir, params)
+    time_serving(predict.restore_darknet(params, model_dir, "last").cuda(),
+                 frames, "darknet_d")
+    return frames, y_true, model_dir, runs
+
+
+def check_fine_tune(sd, arrs, head):
+    """The fine-tune epoch's checkpoint: blocks 1-18 equal to the npz to
+    the bit, the head moved from ``head``, bn_1's running mean moved."""
     for i in range(1, 19):
         for key, name in ((f"conv_{i}.weight", "kernel:0"),
                           (f"bn_{i}.weight", "gamma:0"),
@@ -1242,65 +1402,261 @@ def run_dark_train_slice(frames, y_true, x_np, y_np, root):
                 want = want.transpose(3, 2, 0, 1)
             require(np.array_equal(sd["model." + key].numpy(), want),
                     f"fine-tune: frozen {key} moved")
-    head = DarkNet(n_boxes=1, n_classes=43, seed=0).model.conv_19.weight
     require(not torch.equal(sd["model.conv_19.weight"], head.detach()),
             "fine-tune: the head did not move")
     require(not np.array_equal(sd["model.bn_1.running_mean"].numpy(),
                                arrs["0-scope/moving_mean:0"]),
             "fine-tune: bn_1's running mean did not move")
+
+
+def run_darknet_d_train(frames, y_true, root):
+    """Phase 19: darknet_d through train_and_evaluate, f32 then bf16 (the
+    loss falls, no kernel launches, the avg iou lines, finite non-zero
+    gradients), each trained last.ckpt served through phase 5's checks;
+    --mode overfit; a fine-tune epoch from an npz; the step's time.
+    Returns the f32 predict leg's launch counts."""
+    x_np, y_np, _, _ = loader.synthetic_dataset(
+        "darknet_d", darknet_d_params("float32"), BATCH, 0)
+    require(y_np.shape == (BATCH, 14, 14, 5), "darknet_d grids")
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        params = darknet_d_params(dtype)
+        model_dir = os.path.join(root, dtype)
+        losses_tr, _, text = dark_train(params, model_dir)
+        require(losses_tr[-1] < losses_tr[0],
+                f"darknet_d {dtype}: the train loss did not fall: "
+                f"{losses_tr}")
+        for tag in ("train", "test"):
+            require(text.count(f"{tag} avg iou: ")
+                    == TRAIN_EPOCHS, f"darknet_d: the {tag} avg iou line")
+        check_dark_grads(params, torch.from_numpy(x_np).cuda().to(
+            getattr(torch, dtype)), torch.from_numpy(y_np).cuda())
+        print(f"[dark_train] darknet_d {dtype}-trained last.ckpt through "
+              "dark_pred:")
+        out[dtype] = run_slice(frames, y_true, model_dir,
+                               darknet_d_params("float32"))
+        shutil.rmtree(model_dir + "1")
+
+    # the CLI's --mode overfit: 3/3 scenes
+    model_dir = os.path.join(root, "overfit")
+    losses_tr = dark_train(darknet_d_params("float32"), model_dir,
+                           is_small=True)[0]
+    require(losses_tr[-1] < losses_tr[0],
+            f"darknet_d overfit: the train loss did not fall: {losses_tr}")
     shutil.rmtree(model_dir + "1")
-    print("[dark_train] fine-tune from the npz, fine_tune 18: blocks 1-18 "
-          "equal to the npz to the bit, conv_19 moved, bn_1.running_mean "
-          "moved")
+
+    # --fine_tune: the npz, blocks 1-18 (params.json's fine_tune) frozen
+    npz = os.path.join(root, "darknet19_weights.npz")
+    arrs = write_darknet19_npz(npz)
+    model_dir = os.path.join(root, "fine_tune")
+    text = dark_train(darknet_d_params("float32", n_epochs=1,
+                                       do_fine_tune=True,
+                                       pretrained_weights=npz), model_dir)[2]
+    require(f"Load weights from {npz}" in text, "npz not loaded")
+    check_fine_tune(ckpt.load_checkpoint(os.path.join(
+        model_dir + "1", "last.ckpt"))["state_dict"], arrs,
+        DarkNet(n_boxes=2, n_classes=0, seed=0).model.conv_19.weight)
+    shutil.rmtree(model_dir + "1")
+    print("[dark_train] darknet_d fine-tune from the npz, fine_tune 18: "
+          "blocks 1-18 equal to the npz to the bit, conv_19 moved, "
+          "bn_1.running_mean moved")
+
+    time_dark_train_step(darknet_d_params("float32"), x_np, y_np)
+
     return out["float32"]
 
 
-def darknet_train_flop(size=448):
-    """FLOP of one image's train step: every conv forward and wgrad,
-    every conv's dgrad but conv_1's (the input takes no gradient)."""
+def run_darknet_d_combine(frames, y_true, dark_dir, classifiers):
+    """Phase 19: --combine on phase 18's seeded darknet_d, as the CLI
+    calls it (f32): cnn and capsule on the host path, capsule fused
+    (--device_crop).  K2 x1 and K1 x4 per detector batch, K3 per 64 crops
+    (host) or per detector batch (fused), and the JAX package's nan / 0.0
+    combine metrics.  Returns each run's launch counts."""
+    out = {}
+    n_batches = -(-len(frames) // BATCH)
+    for name, device_crop in (("cnn", False), ("capsule", False),
+                              ("capsule", True)):
+        dparams = darknet_d_params("float32")
+        cparams = two_stage_params(name, "float32")[1]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_hat, (idx, _, _) = predict.dark_class_pred(
+            list(frames), dark_dir, dparams, classifiers[name], cparams,
+            "last", device="cuda", device_crop=device_crop,
+            max_crops=MAX_CROPS)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        path = "fused" if device_crop else "host"
+        n_k3 = 0
+        if name == "capsule":
+            n_k3 = n_batches if device_crop else -(-len(idx) // CAPS_BATCH)
+        require(launches == two_stage_launches(len(frames), n_k3),
+                f"darknet_d --combine {name} {path}: launches {launches}")
+        require(len(idx) > 0 and np.isfinite(y_hat).all()
+                and y_hat.shape == (len(frames), 14, 14, 10 + 43),
+                f"darknet_d --combine {name} {path}: the combined grid")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # mean of none
+            m_ap = det.detect_and_recog_mAP(y_true, y_hat, dparams)
+        acc = det.detect_and_recog_acc(y_true, y_hat, dparams)
+        print(f"[darknet_d] --combine {name} ({path} path): {len(frames)} "
+              f"frames, {len(idx)} crops, {wall:.3f} s = "
+              f"{len(frames) / wall:.1f} frames/s (host clock, restores "
+              f"included; {SMI}); launches {launches}; "
+              f"detect_and_recog_mAP:{m_ap}, detect_and_recog_acc:{acc}, "
+              "(the JAX package's nan / 0.0: n_classes set to 43 leaves "
+              "the 5-channel ground truth without a box)")
+        require(np.isnan(m_ap) and acc == 0.0,
+                "darknet_d --combine: not the JAX package's nan / 0.0")
+        out[name, path] = launches
+    return out
+
+
+def darkcapsule_params(dtype, **over):
+    """darkcapsule as in experiments/darkcapsule/params.json (n_grid 7,
+    so 224 px; batch 32; its "device" key is not read), 2 epochs at lr
+    1e-3, as the CLI's train mode sets it."""
+    p = Params(os.path.join(HERE, "experiments", "darkcapsule",
+                            "params.json"),
+               model="darkcapsule", n_epochs=TRAIN_EPOCHS, lr_runtime=1e-3,
+               eval_every=1, train_frac=1, summary=False,
+               compute_dtype=dtype)
+    p.__dict__.update(over)
+    require((p.batch_size, p.n_grid) == (BATCH, 7), "darkcapsule config")
+    return p
+
+
+def darkcapsule_flop(size=224, n_grid=7):
+    """FLOP of one image's DarkCapsuleNet forward and train step: the five
+    convs (forward, wgrad, dgrad but conv_1's) and the routing's one
+    contraction per cell (the K=1 closed form)."""
     fwd, hw, in_c = [], size, 3
-    for out_c, k, after in DARKNET_LAYERS:
+    for out_c, k, stride in DARKCAPSULE_LAYERS:
+        hw = (hw + 2 - k) // stride + 1
         fwd.append(2 * hw * hw * in_c * out_c * k * k)
         in_c = out_c
-        if after == "mp":
-            hw //= 2
-    fwd.append(2 * hw * hw * in_c * (5 + 43))
+    fwd.append(2 * n_grid * n_grid * 512 * 8 * 5)
     return sum(fwd), 3 * sum(fwd) - fwd[0]
 
 
-def time_dark_train_step(params, x_np, y_np):
-    """Phase 14: the darknet_r train step at batch 32, f32 and bf16:
-    CUDA-event time per step beside its operation bound, then the
-    profile of the same calls; returns {dtype: ms}."""
-    fwd, step_flop = darknet_train_flop()
-    print(f"[time] darknet_r at 448 px: {fwd / 1e9:.2f} GFLOP per image "
+def check_darkcapsule_grads(params, x, y):
+    """Phase 20, on one batch: after a step the route weights and every
+    conv weight have a finite non-zero gradient, the conv biases (before
+    a train-mode BN, so 0 but for rounding) one within a share of their
+    weight's, the decoder none (never called); every parameter finite."""
+    cfg = losses.LossConfig.from_params(params)
+    model = DarkCapsuleNet(n_grid=7, dtype=getattr(torch,
+                                                  params.compute_dtype),
+                           seed=0).cuda().train()
+    opt = steps.make_optimizer(model)
+    loss, _, _ = steps.train_step(model, opt, x, y, 1e-3, cfg, "darkcapsule")
+    named = dict(model.named_parameters())
+    noise = 1e-3 if params.compute_dtype == "float32" else 5e-2
+    for name, p in named.items():
+        g = p.grad
+        if name.startswith("decoder."):
+            require(g is None, f"{name} has a gradient")
+            continue
+        require(torch.isfinite(g).all(), f"gradient of {name} not finite")
+        if name.startswith("conv.conv") and name.endswith(".bias"):
+            w = named[name[:-4] + "weight"].grad.abs().max().item()
+            require(g.abs().max().item() <= noise * w,
+                    f"{name}: gradient {g.abs().max().item()} beside its "
+                    f"weight's {w}")
+        else:
+            require(g.abs().max() > 0, f"gradient of {name} all zero")
+        require(torch.isfinite(p).all(), f"{name} not finite after a step")
+    print(f"[darkcapsule] {params.compute_dtype} one step on a batch of "
+          f"{BATCH}: loss {loss.item()}; the route weights' and all 5 conv "
+          "weights' gradients finite and non-zero, the conv biases' "
+          f"rounding noise within {noise} of their weights'")
+
+
+def run_darkcapsule(root):
+    """Phase 20: darkcapsule through train_and_evaluate at 224 px, batch
+    32, f32 then bf16 (no kernel launches: its K=1 routing is the closed
+    form; the loss falls; gradients), the step's time beside its bound
+    and the forward's img/s; the trained model's forward on the card
+    against the same model on the CPU (f32, atol 1e-4); the CLI's
+    predict writes its empty metric file."""
+    x_np, y_np, _, _ = loader.synthetic_dataset(
+        "darkcapsule", darkcapsule_params("float32"), BATCH, 0)
+    require(x_np.shape == (BATCH, 224, 224, 3)
+            and y_np.shape == (BATCH, 7, 7, 48), "darkcapsule scenes")
+    fwd, step_flop = darkcapsule_flop()
+    print(f"[time] darkcapsule at 224 px: {fwd / 1e9:.2f} GFLOP per image "
           f"forward, {step_flop * BATCH / 1e12:.3f} TFLOP per train step of "
           f"{BATCH}")
-    cfg = losses.LossConfig.from_params(params)
-    y = torch.from_numpy(y_np[:BATCH]).cuda()
-    out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        model = DarkNet(n_boxes=1, n_classes=43, dropout=0.5, dtype=dtype,
-                        seed=0).cuda().train()
+    cfg = losses.LossConfig.from_params(darkcapsule_params("float32"))
+    yd = torch.from_numpy(y_np).cuda()
+    for dtype in ("float32", "bfloat16"):
+        params = darkcapsule_params(dtype)
+        model_dir = os.path.join(root, dtype)
+        losses_tr = dark_train(params, model_dir)[0]
+        require(losses_tr[-1] < losses_tr[0],
+                f"darkcapsule {dtype}: the train loss did not fall: "
+                f"{losses_tr}")
+        dt = getattr(torch, dtype)
+        xd = torch.from_numpy(x_np).cuda().to(dt)
+        check_darkcapsule_grads(params, xd, yd)
+        model = DarkCapsuleNet(n_grid=7, dtype=dt, seed=0).cuda().train()
         opt = steps.make_optimizer(model)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        x = torch.from_numpy(x_np[:BATCH]).cuda().to(dtype)
 
         def step():
-            return steps.train_step(model, opt, x, y, 1e-3, cfg, "darknet_r",
-                                    gen)
+            return steps.train_step(model, opt, xd, yd, 1e-3, cfg,
+                                    "darkcapsule")
 
         torch.cuda.reset_peak_memory_stats()
         ms = time_ms(step, iters=10)
-        bound, by = bound_ms(0, step_flop * BATCH, dtype)
-        print(f"[time] darknet_r train step (forward with dropout, "
-              f"dark_loss, backward, Adam) batch {BATCH} {str(dtype)[6:]}: "
-              f"{ms:.3f} ms = {BATCH / ms * 1e3:.1f} img/s; bound "
-              f"{bound:.3f} ms ({by}), {bound / ms:.3f} of it; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_ms(step, ms, iters=3, groups=DARK_GROUPS, top=15)
-        out[dtype] = ms
-    return out
+        bound, by = bound_ms(0, step_flop * BATCH, dt)
+        print(f"[time] darkcapsule train step (forward, darkcapsule_loss, "
+              f"backward, Adam) batch {BATCH} {dtype}: {ms:.3f} ms = "
+              f"{BATCH / ms * 1e3:.1f} img/s; bound {bound:.3f} ms ({by}), "
+              f"{bound / ms:.3f} of it; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({SMI})")
+        profile_ms(step, ms, iters=3, groups=DARK_GROUPS, top=12)
+        model.eval()
+        with torch.inference_mode():
+            ms_f = time_ms(lambda: model(xd), iters=10)
+        bound_f, by_f = bound_ms(0, fwd * BATCH, dt)
+        print(f"[time] darkcapsule eval forward batch {BATCH} {dtype}: "
+              f"{ms_f:.3f} ms = {BATCH / ms_f * 1e3:.1f} img/s; bound "
+              f"{bound_f:.3f} ms ({by_f}), {bound_f / ms_f:.3f} of it "
+              f"({SMI})")
+        if dtype == "float32":
+            # the trained model on the card and on the CPU, f32
+            sd = ckpt.load_checkpoint(os.path.join(
+                model_dir + "1", "last.ckpt"))["state_dict"]
+            net = DarkCapsuleNet(n_grid=7, seed=0)
+            net.load_state_dict(sd, strict=True)
+            x4 = torch.from_numpy(x_np[:4])
+            with torch.no_grad():
+                want = net.eval()(x4)
+                got = net.cuda()(x4.cuda()).cpu()
+            err = (got - want).abs().max().item()
+            print(f"[darkcapsule] f32-trained model, 4 scenes: the card's "
+                  f"forward vs the CPU's max_abs_err {err} (capsule "
+                  f"lengths {want.norm(dim=-1).min().item():.3f}-"
+                  f"{want.norm(dim=-1).max().item():.3f})")
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        shutil.rmtree(model_dir + "1")
+
+    # the CLI's predict: no predict function, an empty metric file
+    cli_dir = os.path.join(root, "cli")
+    os.makedirs(cli_dir, exist_ok=True)
+    darkcapsule_params("float32").save(os.path.join(cli_dir, "params.json"))
+    reset_launches()
+    cli.main(["--model", "darkcapsule", "--mode", "predict", "--restore",
+              "last", "--model_dir", cli_dir])
+    launches = read_launches()
+    with open(os.path.join(cli_dir, "metric_output.txt")) as f:
+        text = f.read()
+    require(text == "" and sum(launches.values()) == 0,
+            f"darkcapsule predict: {text!r}, launches {launches}")
+    print("[darkcapsule] the CLI's predict (--device cuda by default; the "
+          "params' \"device\": \"cpu\" unread) wrote an empty "
+          f"metric_output.txt; launches {launches}")
 
 
 def cnn_params(dtype):
@@ -1626,7 +1982,7 @@ def main():
                           "state_dict": seeded_darknet(frames).state_dict()},
                          False, model_dir)
     slice_launches = run_slice(frames, y_true, model_dir, params)
-    launches = slice_launches["float32"]
+    launches = slice_launches["float32"]  # phase 18's added at the end
 
     # phase 6
     model = predict.restore_darknet(params, model_dir, "last").cuda()
@@ -1706,6 +2062,26 @@ def main():
         cmodel.traffic_sign_capsules.route_weights[0].detach())
     fused = run_two_stage_fused(frames, model_dir, classifiers)
     print(f"[two_stage] launches: host {host}; fused capsule {fused}")
+
+    # phase 18
+    d_root = os.path.join(HERE, "build", "chip_smoke", "darknet_d")
+    d_frames, d_y, d_dir, d_launches = run_darknet_d_serving(d_root)
+
+    # phase 19
+    d_train = run_darknet_d_train(d_frames, d_y,
+                                  os.path.join(d_root, "train"))
+    d_combine = run_darknet_d_combine(d_frames, d_y, d_dir, classifiers)
+    print(f"[darknet_d] launches: serving {d_launches}; predict leg from "
+          f"the f32-trained checkpoint {d_train}; --combine {d_combine}")
+
+    # phase 20
+    run_darkcapsule(os.path.join(HERE, "build", "chip_smoke", "darkcapsule"))
+
+    # K1 and K2 on the main paths: darknet_r's (phase 5) and darknet_d's
+    # (phase 18) serving
+    for dtype, runs in slice_launches.items():
+        for k in ("pool_leaky", "input_stage"):
+            runs[k] += d_launches[dtype][k]
 
     pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu_torch"
     jax_pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu"

@@ -1,15 +1,18 @@
-"""CLI of the PyTorch port: darknet_r, capsule and cnn predict, train
-and overfit, and the two-stage darknet_r --combine capsule|cnn.
+"""CLI of the PyTorch port: predict, train and overfit of the five
+models (darknet_r, darknet_d, darkcapsule, capsule, cnn), and the
+two-stage darknet_r|darknet_d --combine capsule|cnn.
 
     python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
-        --model darknet_r|capsule|cnn --mode predict --restore last \\
+        --model darknet_r|darknet_d|darkcapsule|capsule|cnn \\
+        --mode predict --restore last \\
         [--dtype float32|bfloat16] [--device cuda|cpu] [--model_dir DIR]
     python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
-        --model darknet_r --mode predict --restore last \\
+        --model darknet_r|darknet_d --mode predict --restore last \\
         --combine capsule|cnn [--device_crop] [--max_crops 16] \\
         [--dtype float32|bfloat16] [--device cuda|cpu]
     python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
-        --model darknet_r|capsule|cnn --mode train|overfit \\
+        --model darknet_r|darknet_d|darkcapsule|capsule|cnn \\
+        --mode train|overfit \\
         [--dtype float32|bfloat16] [--seed N] [--lr LR] [--dropout P] \\
         [--fine_tune N] [--npy] [--recon] [--recon_coef C] \\
         [--eval_every N] [--train_frac F] [--no_metric] \\
@@ -18,10 +21,12 @@ and overfit, and the two-stage darknet_r --combine capsule|cnn.
 Reads ``<model_dir>/params.json``.  predict reads
 ``<model_dir>/<restore>.ckpt`` (the reference's torch format; else the
 same file under ``<model_dir><train_frac>``, where training writes),
-predicts over the test set (GTSDB frames for the detector, GTSRB crops
-for the classifier) or, when it is absent, the synthetic test set, and
-writes ``<model_dir>/metric_output.txt`` as the JAX CLI does.  With
-``--combine capsule|cnn`` the detector's frames go through the two-stage
+predicts over the test set (GTSDB frames for a detector, GTSRB crops
+for a classifier) or, when it is absent, the synthetic test set, and
+writes ``<model_dir>/metric_output.txt`` as the JAX CLI does.
+darkcapsule has no predict function in the reference: its predict
+loads the test set and writes an empty metric file, restoring nothing.
+With ``--combine capsule|cnn`` the detector's frames go through the two-stage
 pipeline (`predict.dark_class_pred`; ``--device_crop`` fuses it into one
 device pass per batch, classifying the top ``--max_crops`` boxes of a
 frame): the classifier's params and checkpoint come from its own model
@@ -37,9 +42,11 @@ optimizer LR comes from ``--lr`` only, ``--recon`` turns the
 reconstruction loss OFF, and ``--fine_tune N`` with N > 0 only turns
 fine-tuning on (the darknet19 npz ``params.pretrained_weights``, default
 ``./darknet19_weights.npz``, when present): the count of frozen blocks
-is ``fine_tune`` in params.json (18 for darknet_r).  ``--dropout P``
-(P >= 0) overrides the json's dropout.  Any other model, mode or
-``--dtype`` (int8) exits with a "not ported yet" message.
+is ``fine_tune`` in params.json (18 for darknet_r and darknet_d).
+``--dropout P`` (P >= 0) overrides the json's dropout.  ``--device``
+alone picks the device (darkcapsule's params.json ``device`` key is not
+read).  Any other mode or ``--dtype`` (int8) exits with a "not ported
+yet" message.
 """
 
 import argparse
@@ -52,7 +59,7 @@ import numpy as np
 from . import config
 from .data import loader
 from .metrics.classification import recog_acc, recog_auc, recog_pr
-from .device import compute_dtype
+from .device import compute_dtype, resolve_device
 from .metrics.detection import (detect_AP, detect_acc, detect_and_recog_acc,
                                 detect_and_recog_mAP)
 from .params import Params
@@ -60,8 +67,10 @@ from .predict import CLASSIFIERS, class_pred, dark_class_pred, dark_pred
 from .train.driver import train_and_evaluate
 from .train.logging_utils import ScalarWriter
 
-PORTED = {(m, mode) for m in ("darknet_r", "capsule", "cnn")
+PORTED = {(m, mode) for m in config.model_names
           for mode in ("predict", "train", "overfit")}
+# the detectors --combine takes (JAX main.py's combine_model)
+DETECTORS = ("darknet_d", "darknet_r")
 
 parser = argparse.ArgumentParser(
     prog="python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch")
@@ -145,7 +154,7 @@ def main(argv=None):
         compute_dtype(args.dtype)
     except ValueError as e:
         sys.exit(f"--dtype {args.dtype}: {e}")
-    combine = args.mode == "predict" and args.model not in CLASSIFIERS \
+    combine = args.mode == "predict" and args.model in DETECTORS \
         and args.combine is not None
     if combine and args.combine not in CLASSIFIERS:
         sys.exit(f"--combine {args.combine}: choose from "
@@ -180,6 +189,12 @@ def main(argv=None):
             "detect_and_recog_mAP": detect_and_recog_mAP(y, y_hat, params),
             "detect_and_recog_acc": detect_and_recog_acc(y, y_hat, params)}
         save_path = model_dir + f"/combine-{args.combine}_metric_output.txt"
+    elif args.model == "darkcapsule":
+        # no predict function (JAX main.py:241-318): the test set is
+        # loaded, nothing is restored and no metric computed
+        resolve_device(args.device)
+        load_test_frames(data_dir, args.model, params)
+        metric_out = {}
     else:
         x, y = load_test_frames(data_dir, args.model, params)
         y_hat, _ = dark_pred(x, model_dir, params, args.restore,

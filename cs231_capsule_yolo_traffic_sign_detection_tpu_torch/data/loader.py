@@ -14,7 +14,7 @@ import numpy as np
 from .. import config
 from ..ops import boxes as box_ops
 
-DETECTION_MODELS = ("darknet_d", "darknet_r")
+DETECTION_MODELS = ("darknet_d", "darknet_r", "darkcapsule")
 CLASSIFIER_MODELS = ("cnn", "capsule")
 # synthetic fallback sizes (train, eval): classification sets are cheap
 # (32x32); detection scenes at 448^2 are ~2.4 MB each; 3/3 for overfit
@@ -105,7 +105,9 @@ def synthetic_dataset(model_name, params, n_train, n_eval):
     """Deterministic synthetic (x_tr, y_tr, x_ev, y_ev): class-separable
     centered crops (``capsule_input`` px, default 32) with int labels for
     a classifier; one synthetic sign per centered scene with its YOLO
-    grid label for a detector."""
+    grid label for a detector (5 + n_classes channels: 5 for darknet_d),
+    at darknet_input px, or 32 * n_grid for darkcapsule, whose capsule
+    grid needs that size."""
     rng = np.random.RandomState(0)
     if model_name in CLASSIFIER_MODELS:
         n_classes = int(params.get("n_classes", 43) or 43)
@@ -119,6 +121,8 @@ def synthetic_dataset(model_name, params, n_train, n_eval):
         raise ValueError(f"synthetic data for {model_name!r} is not ported "
                          f"yet: {ported}")
     size = int(params.darknet_input)
+    if model_name == "darkcapsule":
+        size = 32 * int(params.n_grid)
     x_tr, y_tr = _synthetic_detection(params, n_train, rng, size)
     x_ev, y_ev = _synthetic_detection(params, n_eval, rng, size)
     return x_tr, y_tr, x_ev, y_ev

@@ -1,10 +1,10 @@
-"""JAX variables -> the port's state_dict (darknet models, CapsuleNet and
-ConvNet).
+"""JAX variables -> the port's state_dict (darknet models, CapsuleNet,
+ConvNet and DarkCapsuleNet).
 
 The JAX package keeps ``{"params", "batch_stats"}`` trees with HWIO
 conv kernels; the port registers the reference state_dict keys and
-OIHW layouts.  `jax_variables_to_state_dict` is the darknet, capsule and
-cnn part of the JAX package's ``interop.variables_to_torch_state_dict``,
+OIHW layouts.  `jax_variables_to_state_dict` is the JAX package's
+``interop.variables_to_torch_state_dict`` for the five models,
 written again here on numpy arrays so the port imports nothing of that
 package.
 """
@@ -14,10 +14,12 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .models.darkcapsule import DARKCAPSULE_LAYERS
 from .models.darknet import DARKNET_LAYERS
+from .models.layers import ReconDecoder
 
 DARKNET_MODELS = ("darknet_d", "darknet_r")
-MODELS = DARKNET_MODELS + ("capsule", "cnn")
+MODELS = DARKNET_MODELS + ("capsule", "cnn", "darkcapsule")
 # CapsuleNet's primary capsules: 16 channels at 9 x 9 positions, 8 convs
 CAPS_CHANNELS, CAPS_POSITIONS, CAPS_CONVS = 16, 81, 8
 
@@ -112,6 +114,23 @@ def _convnet(p, bs):
     return out
 
 
+def _darkcapsule(p, bs):
+    """DarkCapsuleNet: five biased conv blocks, the route weights with the
+    reference's leading 1, and zeros for the decoder the reference
+    registers and never calls (so a strict load accepts the result)."""
+    out = OrderedDict()
+    for i in range(1, len(DARKCAPSULE_LAYERS) + 1):
+        block_p, block_s = p[f"block_{i}"], bs[f"block_{i}"]
+        out[f"conv.conv_{i}.weight"] = _conv(block_p[f"conv_{i}"]["kernel"])
+        out[f"conv.conv_{i}.bias"] = _f32(block_p[f"conv_{i}"]["bias"])
+        _bn(out, f"conv.bn_{i}", block_p[f"bn_{i}"], block_s[f"bn_{i}"])
+    out["traffic_sign_capsules.route_weights"] = _f32(
+        np.asarray(p["traffic_sign_capsules"]["route_weights"])[None])
+    for key, t in ReconDecoder().state_dict().items():
+        out["decoder." + key] = torch.zeros_like(t)
+    return out
+
+
 def jax_variables_to_state_dict(variables_np, model_name):
     """``{"params"[, "batch_stats"]}`` of numpy arrays -> the port's
     state_dict for ``model_name``, keys in the reference's registration
@@ -128,4 +147,7 @@ def jax_variables_to_state_dict(variables_np, model_name):
         return _capsule(variables_np["params"])
     if model_name == "cnn":
         return _convnet(variables_np["params"], variables_np["batch_stats"])
+    if model_name == "darkcapsule":
+        return _darkcapsule(variables_np["params"],
+                            variables_np["batch_stats"])
     return _darknet(variables_np["params"], variables_np["batch_stats"])

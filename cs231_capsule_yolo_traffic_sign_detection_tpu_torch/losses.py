@@ -1,5 +1,5 @@
-"""Losses (PyTorch port of the JAX losses.py): the two classifiers' and
-the YOLO-v1 detector's.
+"""Losses (PyTorch port of the JAX losses.py): the two classifiers', the
+YOLO-v1 detector's (darknet_r and darknet_d) and darkcapsule's.
 
 `LossConfig.from_params` reads the same keys with the same defaults as
 the JAX one.  `cnn_loss` is the reference's softmax cross-entropy
@@ -8,10 +8,11 @@ the JAX one.  `cnn_loss` is the reference's softmax cross-entropy
 T relu(0.9 - s)^2 + 0.5 (1 - T) relu(s - 0.1)^2 summed over every
 entry, plus ``recon_coef * sum((x - recon)^2)`` when the reconstruction
 is on, all divided by the batch size.  `dark_loss` is the JAX package's
-masked, fixed-shape YOLO-v1 loss.  All return
-``(loss, aux)`` as the JAX losses do, and none waits for the card:
-no ``.item()``, no ``F.one_hot`` (it checks its labels on the host), no
-boolean indexing.  darkcapsule's loss is not ported yet.
+masked, fixed-shape YOLO-v1 loss.  `darkcapsule_loss` is the
+reference's polar loss (loss_fns.py:187-204).  All return ``(loss,
+aux)`` as the JAX losses do, and none waits for the card: no
+``.item()``, no ``F.one_hot`` (it checks its labels on the host), no
+boolean indexing.  darkcapsule's variants 2 and 3 are not ported.
 """
 
 import dataclasses
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops.boxes import cwh_to_xy_grid, iou_xy
+from .ops.polar import polar_transform
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,3 +145,24 @@ def dark_loss(y_pred, y_true, cfg):
     avg_iou = torch.where(n_obj > 0,
                           (obj * max_iou).sum() / n_obj.clamp_min(1.0), 0.0)
     return loss, {"avg_iou": avg_iou}
+
+
+def darkcapsule_loss(caps, y, cfg, x=None, recon=None):
+    """Capsule detection loss (JAX losses.py:184-208): the margin on each
+    cell capsule's length against the presence y_r, plus the coordinate
+    term -caps . y_phi against the polar-transformed target, summed and
+    divided by the batch.
+
+    caps (B, g, g, 5), y (B, g, g, 5 + C).  As the reference, the
+    reconstruction error is added outside the division and without
+    recon_coef, and only when a reconstruction is given (the train loop
+    never gives one: COMPAT #5)."""
+    y = y.to(caps.dtype)
+    y_r, y_phi = polar_transform(y[..., :5])
+    cap_r = (caps * caps).sum(dim=-1).sqrt()
+    margin = (y_r * F.relu(0.9 - cap_r) ** 2
+              + 0.5 * (1.0 - y_r) * F.relu(cap_r - 0.1) ** 2)
+    loss = (margin.sum() + (-caps * y_phi).sum()) / y.shape[0]
+    if cfg.recon and recon is not None:
+        loss = loss + ((x - recon) ** 2).sum()
+    return loss, {}

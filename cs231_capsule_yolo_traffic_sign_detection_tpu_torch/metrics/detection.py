@@ -1,7 +1,9 @@
 """Detection metrics (numpy): the subset of the JAX metrics/detection.py
-that darknet_r's predict mode, its training and the two-stage pipeline
-report — COCO-style AP over an (IoU x confidence) threshold sweep, F1
-at conf .5 / IoU .5, and their class-wise forms.  No plots."""
+that the detectors' predict mode and training and the two-stage
+pipeline report — COCO-style AP over an (IoU x confidence) threshold
+sweep, F1 at conf .5 / IoU .5, their class-wise forms, and
+darkcapsule's cell-presence F1.  No plots; `darkcapsule_acc` (the
+unregistered DarkCapsuleNet3's) is not ported."""
 
 import numpy as np
 
@@ -178,3 +180,17 @@ def detect_and_recog_mAP(y, y_hat, params):
     present = np.sign(y[:, :, :, 5:].reshape(-1, 43).sum(axis=0)) > 0
     avg_ps = np.asarray(avg_ps).reshape(params.n_classes, -1)[present]
     return float(np.mean(avg_ps))
+
+
+def darkcapsule_cell_f1(y, y_hat, params):
+    """Cell-presence F1 of DarkCapsuleNet's (B, g, g, 5) capsule grid:
+    a cell is predicted present where its capsule's length exceeds 0.5,
+    against the target's objectness bit.  darkcapsule's epoch metric,
+    the JAX package's binding (COMPAT #4)."""
+    y, y_hat = np.asarray(y), np.asarray(y_hat)
+    pred = np.sqrt(np.sum(y_hat ** 2, axis=-1)) > 0.5
+    true = y[..., 0] == 1
+    p, r = precision_and_recall(int(np.sum(pred & true)),
+                                int(np.sum(pred & ~true)),
+                                int(np.sum(~pred & true)))
+    return 2 * p * r / (p + r + 1e-8)

@@ -90,6 +90,11 @@ class DarkNet(nn.Module):
         self._blocks = blocks  # plain list: not registered twice
         init_darknet(self, seed)
 
+    @property
+    def layers(self):
+        """The module holding conv_i / bn_i (for the npz and the freeze)."""
+        return self.model
+
     def forward(self, x, generator=None):
         """x: (B, H, W, 3) NHWC -> (B, H/32, W/32, 5B+C) NHWC grid, f32
         (f64 for a float64 model).
@@ -108,18 +113,22 @@ class DarkNet(nn.Module):
 
 
 def load_darknet19_npz(model, npz_path, n_load_layer=18):
-    """Copy pretrained darknet19 weights into ``model`` in place.
+    """Copy pretrained darknet19 weights into ``model`` (a DarkNet, or any
+    model whose ``layers`` holds conv_i / bn_i) in place.
 
     npz keys are ``'{i}-<scope>/<name>:0'`` with i 0-based (layer i + 1):
     ``kernel:0`` is a TF-format HWIO conv kernel (transposed to OIHW
     here), ``gamma:0``/``biases:0`` the BN scale and bias,
     ``moving_mean:0``/``moving_variance:0`` its running statistics.
     Layers above ``n_load_layer`` are skipped (the head always trains
-    from scratch).  Counterpart of the JAX ``load_darknet19_npz``."""
+    from scratch).  A tensor the model lacks, or of another shape, raises
+    ValueError (DarkCapsuleNet's five blocks take no darknet19 weights;
+    the JAX loader raises there too).  Counterpart of the JAX
+    ``load_darknet19_npz``."""
     targets = {"kernel:0": "conv_{}.weight", "gamma:0": "bn_{}.weight",
                "biases:0": "bn_{}.bias", "moving_mean:0": "bn_{}.running_mean",
                "moving_variance:0": "bn_{}.running_var"}
-    state = model.model.state_dict(keep_vars=True)
+    state = model.layers.state_dict(keep_vars=True)
     pretrained = np.load(npz_path)
     with torch.no_grad():
         for key in pretrained.files:
@@ -133,7 +142,10 @@ def load_darknet19_npz(model, npz_path, n_load_layer=18):
             v = pretrained[key]
             if name == "kernel:0":
                 v = np.transpose(v, (3, 2, 0, 1))
-            tgt = state[targets[name].format(index)]
+            key_t = targets[name].format(index)
+            if key_t not in state:
+                raise ValueError(f"{key}: the model has no {key_t}")
+            tgt = state[key_t]
             if tuple(tgt.shape) != v.shape:
                 raise ValueError(f"{key}: shape {v.shape}, the model's "
                                  f"{tuple(tgt.shape)}")
@@ -142,13 +154,13 @@ def load_darknet19_npz(model, npz_path, n_load_layer=18):
 
 
 def freeze_darknet(model, fine_tune):
-    """``requires_grad=False`` on every parameter of the blocks with index
-    <= ``fine_tune`` (conv_i and bn_i; the head is 19), as the
+    """``requires_grad=False`` on every parameter of ``model.layers`` with
+    index <= ``fine_tune`` (conv_i and bn_i; DarkNet's head is 19), as the
     reference's fine-tuning loop (main.py:273-278); returns the count of
     frozen parameters.  Their BN running statistics still update in
     training: the blocks stay in train mode."""
     n = 0
-    for name, p in model.model.named_parameters():
+    for name, p in model.layers.named_parameters():
         if int(name.split(".")[0].split("_")[1]) <= fine_tune:
             p.requires_grad_(False)
             n += p.numel()

@@ -4,12 +4,13 @@ JAX models/init.py).
 The reference relies on torch's default inits: U(-1/sqrt(fan_in),
 +1/sqrt(fan_in)) for conv and linear weights and biases (kaiming-uniform
 with a = sqrt(5)), and 0.1 * N(0, 1) for the capsule route weights
-(reference models.py:57-58).  `init_capsulenet`, `init_darknet` and
-`init_convnet` draw all of them from one ``torch.Generator`` seeded from
-``seed``, so a model's initial weights depend on ``--seed`` and on
-nothing else; BatchNorm starts at scale 1, bias 0, mean 0 and variance 1.  The JAX
-package's draws (jax.random) differ from torch's; the tests carry
-weights across instead of comparing inits.
+(reference models.py:57-58).  `init_capsulenet`, `init_darknet`,
+`init_convnet` and `init_darkcapsule` draw all of them from one
+``torch.Generator`` seeded from ``seed``, so a model's initial weights
+depend on ``--seed`` and on nothing else; BatchNorm starts at scale 1,
+bias 0, mean 0 and variance 1.  The JAX package's draws (jax.random)
+differ from torch's; the tests carry weights across instead of
+comparing inits.
 """
 
 import math
@@ -34,28 +35,25 @@ def route_weights_(param, generator):
         param.normal_(0.0, 1.0, generator=generator).mul_(0.1)
 
 
-def init_capsulenet(model, seed=0):
-    """Every parameter of a CapsuleNet from ``torch.Generator(seed)``, in
-    registration order."""
-    g = torch.Generator().manual_seed(int(seed))
-    for name, module in model.named_modules():
-        if isinstance(module, (nn.Conv2d, nn.Linear)):
-            torch_default_(module, g)
-        elif name.endswith("traffic_sign_capsules"):
-            route_weights_(module.route_weights, g)
-    return model
-
-
 def _init_layers(model, seed):
-    """Every conv and dense layer from ``torch.Generator(seed)``, in
-    registration order; BatchNorm reset to its defaults."""
+    """Every conv and dense layer and every capsule layer's route weights
+    from ``torch.Generator(seed)``, in registration order; BatchNorm reset
+    to its defaults."""
     g = torch.Generator().manual_seed(int(seed))
     for module in model.modules():
         if isinstance(module, (nn.Conv2d, nn.Linear)):
             torch_default_(module, g)
         elif isinstance(module, nn.BatchNorm2d):
             module.reset_parameters()
+        elif isinstance(getattr(module, "route_weights", None), nn.Parameter):
+            route_weights_(module.route_weights, g)
     return model
+
+
+def init_capsulenet(model, seed=0):
+    """Every parameter of a CapsuleNet from ``seed``: conv1, the primary
+    capsules, the route weights, the decoder."""
+    return _init_layers(model, seed)
 
 
 def init_darknet(model, seed=0):
@@ -66,4 +64,10 @@ def init_darknet(model, seed=0):
 def init_convnet(model, seed=0):
     """A ConvNet's convs and dense layers (cnn.0, 4, 10, 12) from
     ``seed``."""
+    return _init_layers(model, seed)
+
+
+def init_darkcapsule(model, seed=0):
+    """A DarkCapsuleNet from ``seed``: conv_1 .. conv_5 (weights and
+    biases), the route weights, the unused decoder; BN at 1/0/0/1."""
     return _init_layers(model, seed)

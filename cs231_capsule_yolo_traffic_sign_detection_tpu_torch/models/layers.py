@@ -1,6 +1,7 @@
 """Shared building blocks (PyTorch port of the JAX models/layers.py):
-DarkNet's conv+BN+leaky block, with the flax BatchNorm and dropout it
-trains with, and the capsule reconstruction decoder."""
+the detectors' conv+BN+leaky block (DarkNet's and DarkCapsuleNet's),
+with the flax BatchNorm and dropout it trains with, and the capsule
+reconstruction decoder."""
 
 import torch
 import torch.nn as nn
@@ -47,37 +48,44 @@ def dropout(x, p, generator):
 
 
 class ConvBNLeaky(nn.Module):
-    """conv -> BatchNorm -> LeakyReLU(0.1) [-> dropout], DarkNet's block.
+    """conv -> BatchNorm -> LeakyReLU(0.1) [-> dropout], the detectors'
+    block.
 
-    A bias-free ``nn.Conv2d`` with symmetric padding (1 for k=3, 0 for
-    k=1), then ``nn.BatchNorm2d(eps=1e-5, momentum=0.01)`` (torch
-    momentum 0.01 is flax momentum 0.99, as the JAX block uses) run by
-    `batch_norm`, LeakyReLU(0.1) and, in training, `dropout`.
-    Children are named ``conv{suffix}``/``bn{suffix}`` with ``suffix =
-    _{name_idx}``, the reference state_dict names.  Works on NCHW
-    tensors, like every ``nn.Conv2d``.
+    An ``nn.Conv2d`` (``kernel``, ``stride``, symmetric ``padding``,
+    by default kernel // 2: 1 for k=3, 0 for k=1; a bias only with
+    ``bias``), then ``nn.BatchNorm2d(eps=1e-5, momentum=bn_momentum)``
+    run by `batch_norm`, LeakyReLU(0.1) and, in training, `dropout`.
+    Torch momentum m is flax momentum 1 - m: DarkNet's blocks take 0.01
+    (flax 0.99), DarkCapsuleNet's torch's default 0.1 (flax 0.9), as the
+    JAX blocks.  Children are named ``conv{suffix}``/``bn{suffix}`` with
+    ``suffix = _{name_idx}``, the reference state_dict names.  Works on
+    NCHW tensors, like every ``nn.Conv2d``.
     """
 
     def __init__(self, in_channels, features, kernel=3, dropout=0.0,
-                 name_idx=None):
+                 name_idx=None, stride=1, padding=None, bias=False,
+                 bn_momentum=0.01):
         super().__init__()
         self.suffix = f"_{name_idx}" if name_idx is not None else ""
         self.dropout = dropout
         self.add_module("conv" + self.suffix, nn.Conv2d(
-            in_channels, features, kernel, padding=kernel // 2, bias=False))
+            in_channels, features, kernel, stride=stride,
+            padding=kernel // 2 if padding is None else padding, bias=bias))
         self.add_module("bn" + self.suffix, nn.BatchNorm2d(
-            features, eps=1e-5, momentum=0.01))
+            features, eps=1e-5, momentum=bn_momentum))
 
     def forward(self, x, dtype=torch.float32, generator=None):
-        """The conv in ``dtype`` on the f32 weight cast to it, BN (f32
-        statistics, output in ``dtype``), leaky and dropout in ``dtype``.
-        Dropout, in training only, draws from ``generator``."""
+        """The conv in ``dtype`` on the f32 weight (and bias) cast to it,
+        BN (f32 statistics, output in ``dtype``), leaky and dropout in
+        ``dtype``.  Dropout, in training only, draws from
+        ``generator``."""
         conv = getattr(self, "conv" + self.suffix)
         bn = getattr(self, "bn" + self.suffix)
-        # the mode is the children's: DarkNet registers them, not the block
+        # the mode is the children's: the model registers them, not the block
         training = bn.training
-        x = F.conv2d(x.to(dtype), conv.weight.to(dtype),
-                     padding=conv.padding)
+        bias = None if conv.bias is None else conv.bias.to(dtype)
+        x = F.conv2d(x.to(dtype), conv.weight.to(dtype), bias,
+                     stride=conv.stride, padding=conv.padding)
         x = batch_norm(x, bn, training)
         x = F.leaky_relu(x, 0.1)
         if training and self.dropout > 0:

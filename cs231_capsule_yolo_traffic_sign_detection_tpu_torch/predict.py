@@ -1,7 +1,8 @@
 """Inference (counterpart of the JAX predict.py: dark_pred, class_pred,
 dark_class_pred).
 
-`dark_pred`: restore the reference-format checkpoint, fold BN, resize
+`dark_pred`: restore the reference-format checkpoint of a darknet
+detector (darknet_r, B=1 C=43, or darknet_d, B=2 C=0), fold BN, resize
 on the device, run the serving forward (ops/input_stage.
 darknet_serving_apply: the input-stage and pool+leaky kernels on a
 card) batch by batch, decode the full grid on the device and flatten
@@ -12,11 +13,17 @@ its full-resolution frame.  Box drawing is not ported.
 with the fused routing kernel on a card, or ConvNet) and score crops
 batch by batch.
 
-`dark_class_pred`: the two-stage detect-then-classify pipeline.  By
+`dark_class_pred`: the two-stage detect-then-classify pipeline, on
+either darknet detector (on darknet_d the combine metrics come out
+nan / 0.0, as in the JAX package: metrics/detection.py).  By
 default the reference's composition through the host (dark_pred's
 crops, centered, through class_pred, then `combine_y_hat`); with
 ``device_crop`` one pass on the device per detector batch
 (`_dark_class_pred_fused`).
+
+darkcapsule has no predict function, as in the reference (JAX
+predict.py's registry): the CLI loads its test set and writes an empty
+metric file.
 """
 
 import numpy as np
@@ -46,7 +53,9 @@ def _restore(model, params, model_dir, restore_file):
 
 
 def restore_darknet(params, model_dir, restore_file):
-    """DarkNet from its checkpoint (see `_restore`)."""
+    """DarkNet with ``params.n_boxes`` boxes and ``params.n_classes``
+    classes (darknet_r, darknet_d) from its checkpoint (see
+    `_restore`)."""
     return _restore(DarkNet(n_boxes=int(params.n_boxes),
                             n_classes=int(params.n_classes)),
                     params, model_dir, restore_file)

@@ -1,5 +1,6 @@
 """Training and evaluation (counterpart of the JAX train/driver.py), for
-the cnn and capsule classifiers and the darknet_r detector.
+the five models: the cnn and capsule classifiers, the darknet_r and
+darknet_d detectors and darkcapsule.
 
 Per epoch, as the reference's main.py:42-217 and the JAX driver: a
 shuffle from the global ``np.random`` stream, ``np.array_split``
@@ -8,8 +9,13 @@ TRAIN loss, the scalars (train_loss / eval_loss / train_metric /
 eval_metric), last/best checkpoints into ``model_dir + str(train_frac)``,
 the ``.npy`` loss and metric histories, and the metric on at most 1000
 subsampled rows (`METRICS`: recog_acc for cnn and capsule,
-detect_and_recog_acc for darknet_r).  The detector's ``avg_iou`` (the
-loss's aux) is kept per epoch as ``last_avg_iou``.
+detect_and_recog_acc for darknet_r, detect_acc for darknet_d,
+darkcapsule_cell_f1 for darkcapsule).  The darknet detectors'
+``avg_iou`` (the loss's aux) is kept per epoch as ``last_avg_iou`` and,
+for darknet_d, printed as the reference does.  darkcapsule trains at
+32 * n_grid px (loader.synthetic_dataset); the ``device`` key of its
+params.json is not read: the ``device`` argument alone picks the
+device.
 
 The dataset stays resident on the device (in bf16 under bf16, whose
 first op casts to it, but for the capsule reconstruction loss, which
@@ -18,10 +24,13 @@ gather per batch on the device, with the same ``np.random.permutation``
 and ``np.array_split`` use as the JAX driver's device-data path, so the
 same ``np.random.seed`` gives both frameworks the same batches.  The
 losses stay on the device until one fetch per epoch; nothing syncs the
-host per batch.  The dropout masks (darknet_r, cnn) come from a
-``torch.Generator`` on the device that the Trainer owns, seeded from
-``seed``.  With ``params.do_fine_tune`` the darknet19 npz is loaded
-(when present) and the blocks up to ``params.fine_tune`` are frozen.
+host per batch.  The dropout masks (darknet_r, darknet_d, cnn) come
+from a ``torch.Generator`` on the device that the Trainer owns, seeded
+from ``seed``.  With ``params.do_fine_tune`` the darknet19 npz is
+loaded (when present) and the blocks up to ``params.fine_tune`` are
+frozen, as the JAX Trainer does for every model: for darkcapsule an npz
+that is present raises (its blocks are not darknet19's) and, its
+params.json having no ``fine_tune``, nothing is frozen.
 Not ported: --mesh, --stream, --scan_epoch, --async_ckpt,
 --ckpt_every.
 """
@@ -36,8 +45,9 @@ from ..data import loader as data_loader
 from ..device import compute_dtype, resolve_device
 from ..losses import LossConfig
 from ..metrics.classification import recog_acc
-from ..metrics.detection import detect_and_recog_acc
-from ..models import CapsuleNet, ConvNet, DarkNet
+from ..metrics.detection import (darkcapsule_cell_f1, detect_acc,
+                                 detect_and_recog_acc)
+from ..models import CapsuleNet, ConvNet, DarkCapsuleNet, DarkNet
 from ..models.darknet import freeze_darknet, load_darknet19_npz
 from . import checkpoint as ckpt
 from .plateau import ReduceLROnPlateau
@@ -46,7 +56,8 @@ from .summary import summarize
 
 # each trained model's epoch metric (JAX metrics/__init__.py:15-25)
 METRICS = {"cnn": recog_acc, "capsule": recog_acc,
-           "darknet_r": detect_and_recog_acc}
+           "darknet_d": detect_acc, "darknet_r": detect_and_recog_acc,
+           "darkcapsule": darkcapsule_cell_f1}
 TRAINED_MODELS = tuple(METRICS)
 
 
@@ -68,6 +79,9 @@ def build_model(params, seed, device):
     elif params.model == "cnn":
         model = ConvNet(n_classes=int(params.n_classes), dropout=dropout,
                         dtype=dtype, seed=seed)
+    elif params.model == "darkcapsule":
+        model = DarkCapsuleNet(n_grid=int(params.n_grid), dtype=dtype,
+                               seed=seed)
     else:
         model = DarkNet(n_boxes=int(params.n_boxes),
                         n_classes=int(params.n_classes),
@@ -135,10 +149,11 @@ class Trainer:
                 torch.from_numpy(y).to(self.device))
         return self._data[key]
 
-    def _epoch_metric(self, losses, ious, y_hats, y, metric_on):
+    def _epoch_metric(self, losses, ious, y_hats, y, metric_on, tag):
         """Mean batch loss and avg_iou (one fetch) and the model's metric
         on <= 1000 rows, with the reference's np.random use (a choice only
-        when the metric is on and there are more rows)."""
+        when the metric is on and there are more rows); darknet_d prints
+        ``<tag> avg iou``."""
         means = [torch.stack(losses).mean()]
         if ious:
             means.append(torch.stack(ious).mean())
@@ -153,6 +168,8 @@ class Trainer:
                 i = np.random.choice(n, config.max_metric_samples).astype(int)
                 y, y_hat = y[i], y_hat[i]
             metric_score = self.metric(y, y_hat, self.params)
+        if self.model_name == "darknet_d":
+            print("{} avg iou: {:05.3f}".format(tag, self.last_avg_iou))
         return avg_loss, metric_score
 
     def train_epoch(self, x, y, lr, metric_on=True):
@@ -175,7 +192,7 @@ class Trainer:
             if "avg_iou" in aux:
                 ious.append(aux["avg_iou"])
         return self._epoch_metric(losses, ious, y_hats, np.asarray(y)[perm],
-                                  metric_on)
+                                  metric_on, "train")
 
     def eval_epoch(self, x, y, metric_on=True):
         """One evaluation epoch; returns (mean batch loss, metric or -1)."""
@@ -193,7 +210,7 @@ class Trainer:
             if "avg_iou" in aux:
                 ious.append(aux["avg_iou"])
         return self._epoch_metric(losses, ious, y_hats, np.asarray(y),
-                                  metric_on)
+                                  metric_on, "test")
 
     # -- checkpoint glue ---------------------------------------------------
 

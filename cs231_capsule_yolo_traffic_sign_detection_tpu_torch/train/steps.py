@@ -1,8 +1,8 @@
 """Train and eval steps (counterpart of the JAX train/steps.py).
 
 `train_step` is one forward (with the reconstruction for the capsule
-classifier, with dropout from the trainer's generator for the detector
-and the cnn classifier), the model's loss from `LOSS_REGISTRY`, the
+classifier, with dropout from the trainer's generator for the darknet
+detectors and the cnn classifier), the model's loss from `LOSS_REGISTRY`, the
 backward (K4 on a card for the capsule classifier) and one Adam update.  optax's
 ``scale_by_adam`` with ``-lr`` applied, as the JAX step does it, is
 torch's Adam with betas (0.9, 0.999) and eps 1e-8.  The learning rate
@@ -10,16 +10,17 @@ is set on the optimizer before each step, from the plateau schedule.
 Master parameters and Adam moments stay f32 whatever the compute dtype.
 Frozen parameters (``requires_grad=False``, fine-tuning) stay out of
 Adam, as in the reference.  The loss, the outputs and the loss's aux
-(``avg_iou`` for the detector) come back as tensors on the device:
-nothing here syncs the host with the card.
+(``avg_iou`` for the darknet detectors) come back as tensors on the
+device: nothing here syncs the host with the card.
 """
 
 import torch
 
-from ..losses import capsule_loss, cnn_loss, dark_loss
+from ..losses import capsule_loss, cnn_loss, dark_loss, darkcapsule_loss
 
 LOSS_REGISTRY = {"cnn": cnn_loss, "capsule": capsule_loss,
-                 "darknet_r": dark_loss}
+                 "darknet_d": dark_loss, "darknet_r": dark_loss,
+                 "darkcapsule": darkcapsule_loss}
 
 
 def make_optimizer(model, lr=1e-3):

@@ -157,8 +157,9 @@ def test_cli_predict_writes_metrics(slice_setup, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "darkcapsule", "--mode", "predict", "--restore", "last"],
-    ["--model", "darknet_d", "--mode", "train"],
+    ["--model", "darkcapsule", "--mode", "predict", "--restore", "last",
+     "--dtype", "int8"],
+    ["--model", "darknet_d", "--mode", "train", "--dtype", "int8"],
 ])
 def test_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -383,7 +383,8 @@ def test_cli_combine_writes_metrics(pipeline, tmp_path, argv):
 @pytest.mark.parametrize("argv, message", [
     (["--model", "darknet_r", "--combine", "capsule", "--dtype", "int8"],
      "not ported yet"),
-    (["--model", "darknet_d", "--combine", "cnn"], "not ported yet"),
+    (["--model", "darknet_d", "--combine", "capsule", "--dtype", "int8"],
+     "not ported yet"),
     (["--model", "darknet_r", "--combine", "darknet_r"], "capsule | cnn"),
 ])
 def test_cli_refuses_what_the_combine_path_lacks(argv, message):
