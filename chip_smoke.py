@@ -5,9 +5,9 @@
 
 Run from the repository root on a machine with a card and nvcc.  Phases
 (any failure ends the run with a non-zero exit; nothing is caught; each
-path of phases 5, 8, 11, 13, 15-17 and 18-20 runs with all four kernels'
-launch counts set to 0 just before it, and is checked on all four just
-after):
+path of phases 5, 8, 11, 13, 15-17, 18-20 and 21-23 runs with all four
+kernels' launch counts set to 0 just before it, and is checked on all
+four just after):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the kernels (csrc/*.cu -> build/kernels/) and print the time;
@@ -141,6 +141,36 @@ after):
    forward on the card against the CPU's (atol 1e-4); the CLI's predict
    writes its empty metric file.
 
+21. predict's outputs through the CLI from a GTSDB-style data dir
+   (PPM_FRAMES of phase 5's scenes as P6 files with a header comment,
+   test_names.npy, test.p), with phase 5's detector: the frames read
+   back equal; `--nms` (K2 x1, K1 x4), its kept boxes equal a numpy
+   greedy NMS on the same decode, each output/<i>.png (decoded here with
+   zlib) equals the frame with the kept boxes and the ground truth drawn
+   and holds a rectangle corner at each kept box, detect_ap/d_AP.png is
+   1000 x 800; then `--combine cnn|capsule --device_crop` (K3 x1 with
+   capsule), their mAP plots and annotated frames;
+22. int8 serving (`--dtype int8`) through `dark_detect` over phase 5's
+   64 scenes: no kernel launch (the int8 chain pools in int8 and runs
+   conv1 as an int8 product); on one batch of phase 5's detector the
+   chain equal bit for bit to itself with exact f64 products in place of
+   im2col and `_int_mm`, and layer 1's s32 accumulators equal to the
+   CPU's product of the same int8 operands; y_hat within JAX's int8
+   bands of the f32 serving (mean < 0.01, max < 0.12) on a full-width
+   detector built as JAX's int8 test builds its network; phase 5's
+   detector's error against f32 by channel group and each layer's
+   relative error, printed (a measurement: out of those bands, as in the
+   JAX package); the forward+decode's ms and img/s at batch 32 beside
+   phase 6's f32 and bf16, its profile (GEMMs, requant, epilogue, int8
+   pools, im2col) and peak memory;
+23. the two-stage paths under int8: fused with the int8 ConvNet (no
+   launch), fused with CapsuleNet in f32 (K3 once a detector batch at
+   B 512), the host path with the f32 ConvNet; frames/s;
+24. a measurement: one darknet_r train step at 448 px, batch 32, on
+   noise, f32 (cuDNN, TF32 off) against f64 on the card from the same
+   weights; each conv weight gradient's largest error over its max|g|
+   and its cosine.
+
 The kernels line's K1 and K2 launches count phases 5 and 18.  The line
 before the last is the JSON ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -150,10 +180,13 @@ import contextlib
 import io
 import json
 import os
+import pickle
 import shutil
+import struct
 import subprocess
 import time
 import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -161,7 +194,7 @@ import torch.nn.functional as F
 
 # the port sits beside this script; alone, the script stops here
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import (
-    Params, __main__ as cli, losses, predict)
+    Params, __main__ as cli, losses, predict, viz)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import loader
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
     resolve_device)
@@ -173,7 +206,9 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models.darkcapsule \
     import DARKCAPSULE_LAYERS
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
     _build, boxes as box_ops, capsule as caps, crop, decode,
-    input_stage as ist, pool, routing)
+    input_stage as ist, pool, quant, routing)
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops.preprocess \
+    import preprocess_images
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
     checkpoint as ckpt, driver, steps)
 
@@ -209,6 +244,18 @@ TRAIN_EPOCHS, TRAIN_CROPS, EVAL_CROPS = 2, 512, 128
 DARK_TRAIN_SCENES, DARK_EVAL_SCENES = 64, 16
 # the fused two-stage path's static cap: boxes classified per frame
 MAX_CROPS = 16
+# phase 21: the GTSDB-style data dir holds this many of phase 5's scenes
+PPM_FRAMES = 8
+# JAX's bands of int8 serving against f32 (tests/test_quant.py:64-65)
+INT8_BANDS = (0.01, 0.12)
+# the int8 chain's profile groups: its GEMMs (and the f32 head's), the
+# requantization, the epilogue, the int8 pools, im2col and casts
+INT8_GROUPS = (("GEMM (_int_mm; f32 head)", ("gemm", "xmma", "cutlass",
+                                             "imma", "cublas")),
+               ("requant (div, round, clamp)", ("div", "round", "clamp")),
+               ("epilogue (mul, add, leaky)", ("leaky", "mul", "add")),
+               ("int8 pool (amax)", ("reduce_kernel", "max")),
+               ("im2col, casts (copy, fill)", ("copy", "fill", "cat")))
 # the card's name and power limit (nvidia-smi), printed beside each time
 SMI = "card not read yet"
 # kernel-name substrings for the profiles' groups, first match wins
@@ -509,8 +556,8 @@ def run_slice(frames, y_true, model_dir, params):
         params.compute_dtype = dtype
         reset_launches()
         t0 = time.perf_counter()
-        y_hat, boxes = predict.dark_pred(list(frames), model_dir, params,
-                                         "last", device="cuda")
+        y_hat, boxes = predict.dark_detect(list(frames), model_dir, params,
+                                           "last", device="cuda")
         wall = time.perf_counter() - t0
         launches = read_launches()
         n_batches = -(-len(frames) // BATCH)
@@ -681,10 +728,12 @@ def profile_ms(fn, wall_ms, iters=5, groups=GROUPS, top=10):
 
 def time_serving(model, frames, name="darknet_r"):
     """Serving forward + decode at batch 32 on device-resident frames:
-    CUDA-event wall time, then the profile of the same calls."""
+    CUDA-event wall time, then the profile of the same calls.  Returns
+    the ms per batch by dtype."""
     nb, nc = model.n_boxes, model.n_classes
     sd = model.state_dict()
     x = torch.from_numpy(frames[:BATCH]).cuda().float()
+    times = {}
     for dtype in (torch.float32, torch.bfloat16):
         p = ist.prepare_serving(sd, dtype)
 
@@ -706,6 +755,8 @@ def time_serving(model, frames, name="darknet_r"):
                   f"{str(dtype)[6:]}: {ms:.3f} ms = "
                   f"{BATCH / ms * 1e3:.1f} img/s{extra} ({SMI})")
             profile_ms(fwd_decode, ms)
+        times[dtype] = ms
+    return times
 
 
 def check_routing():
@@ -1481,7 +1532,7 @@ def run_darknet_d_combine(frames, y_true, dark_dir, classifiers):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        y_hat, (idx, _, _) = predict.dark_class_pred(
+        y_hat, (idx, _, _) = predict.dark_class_detect(
             list(frames), dark_dir, dparams, classifiers[name], cparams,
             "last", device="cuda", device_crop=device_crop,
             max_crops=MAX_CROPS)
@@ -1791,7 +1842,7 @@ def run_two_stage_host(frames, dark_dir, classifiers):
             reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            y_hat, (idx, bx, classes) = predict.dark_class_pred(
+            y_hat, (idx, bx, classes) = predict.dark_class_detect(
                 frames, dark_dir, dparams, cdir, cparams, "last",
                 device="cuda")
             wall = time.perf_counter() - t0
@@ -1810,8 +1861,8 @@ def run_two_stage_host(frames, dark_dir, classifiers):
             # the same stages alone, timed on the host clock
             times = {}
             t0 = time.perf_counter()
-            dark_y, boxes = predict.dark_pred(frames, dark_dir, dparams,
-                                              "last", device="cuda")
+            dark_y, boxes = predict.dark_detect(frames, dark_dir, dparams,
+                                                "last", device="cuda")
             times["detector"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             crops = crop.frame_crops(frames, boxes[0], boxes[1],
@@ -1888,7 +1939,7 @@ def run_two_stage_fused(frames, dark_dir, classifiers):
                 reset_launches()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                y_hat, (idx, _, _) = predict.dark_class_pred(
+                y_hat, (idx, _, _) = predict.dark_class_detect(
                     frames, dark_dir, dparams, cdir, cparams, "last",
                     device="cuda", device_crop=True, max_crops=MAX_CROPS)
                 wall = time.perf_counter() - t0
@@ -1945,6 +1996,428 @@ def run_two_stage_fused(frames, dark_dir, classifiers):
     return out
 
 
+def write_ppm(path, bgr):
+    """A binary PPM (P6) of a BGR frame, with a header comment."""
+    h, w = bgr.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"P6\n# chip_smoke\n%d %d\n255\n" % (w, h)
+                + np.ascontiguousarray(bgr[..., ::-1]).tobytes())
+
+
+def png_rgb(path):
+    """uint8 (H, W, 3) RGB of an 8-bit RGB PNG whose rows use filter 0
+    (what the port writes), decoded here with zlib alone."""
+    with open(path, "rb") as f:
+        data = f.read()
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, head = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        require(zlib.crc32(kind + body) == struct.unpack(
+            ">I", data[pos + 8 + n:pos + 12 + n])[0], f"{path}: bad CRC")
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    require(head is not None and head[2:] == (8, 2, 0, 0, 0),
+            f"{path}: header {head}")
+    w, h = head[:2]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = rows.reshape(h, 1 + 3 * w)
+    require(not rows[:, 0].any(), f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def numpy_nms(xy, valid, iou_th=0.5):
+    """Greedy NMS in numpy over a confidence-sorted list: a slot still
+    kept suppresses each later slot whose IoU (f32, 0/0 as 0) with it
+    exceeds ``iou_th``."""
+    keep = valid.copy()
+    n = xy.shape[1]
+    for b in range(xy.shape[0]):
+        for i in range(n):
+            if not keep[b, i]:
+                continue
+            a, o = xy[b, i], xy[b, i + 1:]
+            wh = np.clip(np.minimum(a[2:], o[:, 2:])
+                         - np.maximum(a[:2], o[:, :2]), 0, None)
+            inter = wh[:, 0] * wh[:, 1]
+            union = ((a[2] - a[0]) * (a[3] - a[1])
+                     + (o[:, 2] - o[:, 0]) * (o[:, 3] - o[:, 1]) - inter)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                iou = np.nan_to_num(inter / union)
+            keep[b, i + 1:] &= ~(iou > iou_th)
+    return keep
+
+
+def ckpt_file(model_dir):
+    """The last.ckpt under ``model_dir`` or where training writes it."""
+    for d in (model_dir, model_dir + "1"):
+        if os.path.exists(os.path.join(d, "last.ckpt")):
+            return os.path.join(d, "last.ckpt")
+    raise RuntimeError(f"chip_smoke: no last.ckpt under {model_dir}")
+
+
+def cli_in(root, argv):
+    """The CLI's main from ``root`` (its relative data/ and experiments/
+    paths); returns the launch counts of the run and its host time."""
+    here = os.getcwd()
+    os.chdir(root)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        return read_launches(), time.perf_counter() - t0
+    finally:
+        os.chdir(here)
+
+
+def run_predict_outputs(frames, y_true, dark_dir, classifiers, root):
+    """Phase 21: a GTSDB-style data dir (P6 frames, test_names.npy,
+    test.p) through the CLI's predict with --nms, then --combine cnn and
+    capsule fused; the frames read back, the launches, the kept boxes
+    against a numpy NMS on the same decode, and every PNG decoded here.
+    Returns the launch counts of each run."""
+    frames = list(frames[:PPM_FRAMES])
+    y = y_true[:PPM_FRAMES]
+    gtsdb = os.path.join(root, "data", "GTSDB")
+    os.makedirs(os.path.join(gtsdb, "raw_GTSDB"), exist_ok=True)
+    names = [f"{i:05d}.ppm" for i in range(len(frames))]
+    for name, f in zip(names, frames):
+        write_ppm(os.path.join(gtsdb, "raw_GTSDB", name), f)
+    np.save(os.path.join(gtsdb, "test_names.npy"), np.array(names))
+    with open(os.path.join(gtsdb, "test.p"), "wb") as f:
+        pickle.dump((np.zeros((len(frames), 1), np.float32), y), f)
+    exp = os.path.join(root, "experiments")
+    for name, src in (("darknet_r", dark_dir), ("cnn", classifiers["cnn"]),
+                      ("capsule", classifiers["capsule"])):
+        os.makedirs(os.path.join(exp, name), exist_ok=True)
+        shutil.copy(os.path.join(HERE, "experiments", name, "params.json"),
+                    os.path.join(exp, name, "params.json"))
+        shutil.copy(ckpt_file(src), os.path.join(exp, name, "last.ckpt"))
+    params = Params(os.path.join(exp, "darknet_r", "params.json"),
+                    model="darknet_r")
+    read, _ = cli.load_test_frames(gtsdb, "darknet_r", params)
+    require(all(np.array_equal(a, b) for a, b in zip(read, frames))
+            and len(read) == len(frames), "frames read back differ")
+    print(f"[outputs] {len(frames)} P6 frames written and read back "
+          "equal (no cv2)")
+
+    out = {}
+    launches, wall = cli_in(root, ["--model", "darknet_r", "--mode",
+                                   "predict", "--restore", "last", "--nms"])
+    print(f"[outputs] CLI predict --nms over {len(frames)} frames: "
+          f"{wall:.3f} s (host clock, restore and artifacts included); "
+          f"launches {launches}")
+    require(launches == two_stage_launches(len(frames), 0),
+            f"predict --nms: kernel launches {launches}")
+    out["predict --nms"] = launches
+    ddir = os.path.join(exp, "darknet_r")
+    # the same frames in-process: the kept boxes against numpy's NMS
+    y_hat, (idx, xy, cls) = predict.dark_detect(
+        frames, ddir, params, "last", device="cuda", use_nms=True)
+    d = decode.decode_grid(torch.from_numpy(y_hat).cuda(), n_classes=43,
+                           n_boxes=1, img_size=448)
+    keep = numpy_nms(d["xy"].cpu().numpy(), d["valid"].cpu().numpy())
+    hw = np.array([f.shape[:2] for f in frames])
+    want = decode.to_flat_host(dict(d, valid=torch.from_numpy(keep)),
+                               image_hw=hw, img_size=448)
+    require(np.array_equal(idx, want[0]) and np.array_equal(cls, want[2])
+            and np.allclose(xy, want[1], rtol=0, atol=1e-3),
+            "NMS kept other boxes than numpy's")
+    n_valid = int(d["valid"].sum())
+    print(f"[outputs] NMS kept {len(idx)} of {n_valid} boxes above 0.5, "
+          "as a numpy greedy NMS on the same decode")
+    require(0 < len(idx) < n_valid, "NMS suppressed nothing or everything")
+    drawn, _ = viz.draw_boxes_vec(frames, idx, xy, cls)
+    t_idx, t_xy, t_cls = box_ops.y_to_boxes_vec(y, params, image_hw=hw)
+    drawn, _ = viz.draw_boxes_vec(drawn, t_idx, t_xy, t_cls,
+                                  color=(0, 0, 255))
+    n_corners = 0
+    for i, want_bgr in enumerate(drawn):
+        img = png_rgb(os.path.join(ddir, "output", f"{i}.png"))
+        require(np.array_equal(img, want_bgr[..., ::-1]),
+                f"output/{i}.png differs from the frame with its boxes")
+        # each kept box's corners inside the frame: green, or red where
+        # a ground-truth box was drawn over it
+        for x1, y1, x2, y2 in xy[idx == i].astype(int):
+            for cx, cy in ((x1, y1), (x2, y1), (x1, y2), (x2, y2)):
+                if 0 <= cx < 448 and 0 <= cy < 448:
+                    require(tuple(img[cy, cx]) in ((0, 255, 0), (255, 0, 0)),
+                            f"output/{i}.png: no rectangle at a box corner")
+                    n_corners += 1
+    require(png_rgb(os.path.join(ddir, "detect_ap", "d_AP.png")).shape
+            == (800, 1000, 3), "d_AP.png size")
+    with open(os.path.join(ddir, "metric_output.txt")) as f:
+        text = f.read()
+    require(text.startswith("detect_AP:"), f"metric file {text!r}")
+    print(f"[outputs] output/0..{len(drawn) - 1}.png decoded (zlib) equal "
+          f"to the frames with the kept boxes and the ground truth drawn; "
+          f"{n_corners} box corners green/red; detect_ap/d_AP.png "
+          f"1000x800; {text}")
+
+    for name in ("cnn", "capsule"):
+        launches, wall = cli_in(root, [
+            "--model", "darknet_r", "--mode", "predict", "--restore",
+            "last", "--combine", name, "--device_crop"])
+        print(f"[outputs] CLI --combine {name} --device_crop over "
+              f"{len(frames)} frames: {wall:.3f} s (host clock); launches "
+              f"{launches}")
+        require(launches == two_stage_launches(
+            len(frames), 1 if name == "capsule" else 0),
+            f"--combine {name}: kernel launches {launches}")
+        for c in (0, 42):
+            require(png_rgb(os.path.join(
+                ddir, f"combine-{name}_mAP", f"d&r_mAP_class_{c}.png"))
+                .shape == (800, 1000, 3), "mAP plot size")
+        for i in range(len(frames)):
+            require(png_rgb(os.path.join(ddir, "output", f"{i}.png")).shape
+                    == (448, 448, 3), f"--combine {name}: output/{i}.png")
+        with open(os.path.join(
+                ddir, f"combine-{name}_metric_output.txt")) as f:
+            text = f.read()
+        require(text.startswith("detect_and_recog_mAP:"), text)
+        print(f"[outputs] --combine {name}: {text}; 43 mAP plots, "
+              f"{len(frames)} annotated frames")
+        out[f"--combine {name} --device_crop"] = launches
+    return out
+
+
+def jax_test_darknet(seed=0):
+    """Full-width darknet_r built as JAX's int8 test builds its network
+    (tests/test_quant.py:18-39): initial weights from the seed, each BN
+    scale, bias, running mean and variance raised by 0.05 |N(0, 1)|."""
+    model = DarkNet(1, 43, seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(
+                model.named_buffers()):
+            if ".bn_" in name and t.is_floating_point():
+                t.add_(0.05 * torch.randn(t.shape, generator=g).abs())
+    return model.eval()
+
+
+def int8_against_f32(frames, model_dir, params, label):
+    """dark_detect under --dtype int8 and float32 over ``frames``: the
+    int8 run's launches and its error against f32 (printed by channel
+    group).  Returns (launches, y_hat int8, abs error)."""
+    params.compute_dtype = "int8"
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y8, boxes = predict.dark_detect(frames, model_dir, params, "last",
+                                    device="cuda")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    params.compute_dtype = "float32"
+    y32, _ = predict.dark_detect(frames, model_dir, params, "last",
+                                 device="cuda")
+    err = np.abs(y8 - y32)
+    by_group = {k: (float(v.mean()), float(v.max())) for k, v in (
+        ("confidence", err[..., 0]), ("box", err[..., 1:5]),
+        ("class", err[..., 5:]))}
+    print(f"[int8] {label}: dark_detect --dtype int8 over {len(frames)} "
+          f"scenes in {wall:.3f} s (host clock, restore, fold, "
+          f"quantization and calibration included), {len(boxes[0])} boxes; "
+          f"launches {launches}; y_hat vs f32 serving mean_abs_err "
+          f"{err.mean()} max {err.max()}; (mean, max) by channel group "
+          f"{by_group}")
+    require(np.isfinite(y8).all(), f"{label}: int8 y_hat not finite")
+    require(sum(launches.values()) == 0,
+            f"{label}: int8 serving launched a kernel: {launches}")
+    return launches, y8, err
+
+
+def run_int8_serving(frames, model_dir, params, serving_ms, root):
+    """Phase 22: darknet_r served under --dtype int8 through dark_detect
+    over phase 5's scenes: no kernel launch; every layer's s32
+    accumulators equal to an exact f64 convolution, layer 1's to a CPU
+    product; JAX's int8 bands against f32 on a detector built as
+    JAX's int8 test builds its own, and phase 5's detector's error with
+    its growth by layer (a measurement: its frame-measured BN statistics
+    leave activations with max/std 20-40, which the static per-tensor
+    scales resolve coarsely, in the JAX package as here); the time beside
+    phase 6's f32 and bf16, the profile and the peak memory.  Returns the
+    launches and the ms per batch."""
+    frames = list(frames)
+    launches, _, err5 = int8_against_f32(frames, model_dir, params,
+                                         "phase 5's detector")
+
+    jdir = os.path.join(root, "jax_test_darknet")
+    ckpt.save_checkpoint({"epoch": 0, "optim_dict": {},
+                          "state_dict": jax_test_darknet().state_dict()},
+                         False, jdir)
+    _, _, err = int8_against_f32(frames, jdir, params,
+                                 "the JAX int8 test's construction")
+
+    def in_band(e):
+        return e.mean() < INT8_BANDS[0] and e.max() < INT8_BANDS[1]
+
+    print(f"[int8] bands (JAX tests/test_quant.py:64-65: mean < "
+          f"{INT8_BANDS[0]}, max < {INT8_BANDS[1]}): JAX test's "
+          f"construction mean {err.mean()} max {err.max()}; phase 5's "
+          f"detector mean {err5.mean()} max {err5.max()} (in band: "
+          f"{in_band(err5)})")
+    require(in_band(err), "int8 y_hat outside JAX's bands")
+
+    model = predict.restore_darknet(params, model_dir, "last").cuda()
+    sd = model.state_dict()
+    x = preprocess_images(frames[:BATCH], 448, "cuda")
+    with torch.inference_mode():
+        q = quant.quantize_darknet(sd, x_cal=x)
+        y8 = quant.darknet_int8_resident_apply(q, x, n_boxes=1, n_classes=43)
+        # layer by layer: the s32 accumulators against an exact f64
+        # convolution of the same int8 operands (integers below 2^53),
+        # and the int8 activation (the dequantized epilogue) against the
+        # folded f32 forward, as a relative error
+        layers, _ = quant.fold_darknet(sd)
+        act, xf = q["act_scales"], x.float()
+        z, rel = quant._requant(x, act[0]), []
+        for i, ((_, k, after), L, Q) in enumerate(zip(
+                DARKNET_LAYERS, layers, q["layers"])):
+            acc = quant._int8_conv(z, Q["wq"], k)
+            ref = F.conv2d(z.double().permute(0, 3, 1, 2),
+                           Q["wq"].double().permute(3, 2, 0, 1),
+                           padding=1 if k == 3 else 0).permute(0, 2, 3, 1)
+            require(torch.equal(acc.double(), ref),
+                    f"layer {i + 1}: the int8 product is not exact")
+            xf = F.leaky_relu(quant._conv_f32(xf, L["w"], k) + L["b"], 0.1)
+            a = quant._epilogue(acc, act[i], Q["ws"], Q["b"], 0.1)
+            rel.append(round(((a - xf).norm() / xf.norm()).item(), 4))
+            if i + 1 < len(DARKNET_LAYERS):
+                z = quant._requant(a, act[i + 1])
+                z = quant._max_pool_int8(z) if after == "mp" else z
+            xf = quant._max_pool(xf) if after == "mp" else xf
+        # the chain's output is this loop's through the f32 head (cuBLAS
+        # may pick another algorithm for another alignment: 1e-6)
+        torch.testing.assert_close(
+            y8, quant._head_f32(a, q["head"], 1, 43), rtol=0, atol=1e-6)
+        print(f"[int8] phase 5's detector, one batch: all 18 layers' s32 "
+              f"accumulators equal an exact f64 convolution of the same "
+              f"int8 operands; relative error of each layer's activation "
+              f"against f32, layers 1-18: {rel}")
+        z = quant._requant(x, q["act_scales"][0])
+        acc = quant._int8_conv(z, q["layers"][0]["wq"], 3)
+        torch.cuda.synchronize()
+    cols = quant._im2col(z.cpu(), 3).double()
+    rows = quant._weight_rows(q["layers"][0]["wq"].cpu()).double()
+    want = (cols @ rows.t()).reshape(acc.shape)
+    require(torch.equal(acc.cpu().double(), want),
+            "layer 1's s32 accumulators differ from the CPU product")
+    print(f"[int8] layer 1 on one batch: {acc.numel()} s32 accumulators "
+          f"({tuple(acc.shape)}, reduction 27 padded to {cols.shape[1]}) "
+          "equal to the CPU's f64 product of the same int8 operands")
+    del cols, rows, want
+
+    def fwd_decode():
+        y = quant.darknet_int8_resident_apply(q, x, n_boxes=1, n_classes=43)
+        return decode.decode_grid(y, n_classes=43, n_boxes=1, img_size=448)
+
+    with torch.inference_mode():
+        ms = time_ms(fwd_decode, iters=10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fwd_decode()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        f32, bf16 = serving_ms[torch.float32], serving_ms[torch.bfloat16]
+        print(f"[time] darknet_r serving forward+decode batch {BATCH} int8 "
+              f"(im2col + _int_mm, f32 epilogues, int8 pools): {ms:.3f} ms "
+              f"= {BATCH / ms * 1e3:.1f} img/s; phase 6 in this call: f32 "
+              f"{f32:.3f} ms = {BATCH / f32 * 1e3:.1f} img/s, bf16 "
+              f"{bf16:.3f} ms = {BATCH / bf16 * 1e3:.1f} img/s; peak memory "
+              f"of a batch above its inputs {peak / 2 ** 30:.3f} GiB "
+              f"({SMI})")
+        profile_ms(fwd_decode, ms, groups=INT8_GROUPS)
+    return launches, ms
+
+
+def run_int8_two_stage(frames, dark_dir, classifiers):
+    """Phase 23: the two-stage paths under --dtype int8: fused with the
+    int8 ConvNet (no kernel launch), fused with CapsuleNet in f32 (K3
+    once a detector batch at B 512), the host path with the ConvNet in
+    f32; frames/s of each (the second of two runs)."""
+    frames = list(frames)
+    n_batches = -(-len(frames) // BATCH)
+    out = {}
+    for name, fused in (("cnn", True), ("capsule", True), ("cnn", False)):
+        dparams, cparams = two_stage_params(name, "int8")
+        for _ in range(2):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y_hat, (idx, _, classes) = predict.dark_class_detect(
+                frames, dark_dir, dparams, classifiers[name], cparams,
+                "last", device="cuda", device_crop=fused,
+                max_crops=MAX_CROPS)
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+        path = "fused" if fused else "host"
+        n_k3 = n_batches if (name == "capsule" and fused) else 0
+        print(f"[int8 two_stage] {path} {name}: {len(frames)} frames, "
+              f"{len(idx)} crops, {wall:.3f} s = {len(frames) / wall:.1f} "
+              f"frames/s end to end (host clock, restores and calibration "
+              f"included; {SMI}); launches {launches}")
+        require(len(idx) > 0 and np.isfinite(y_hat).all()
+                and y_hat.shape == (len(frames), 14, 14, 91),
+                f"int8 {path} {name}: combined grid")
+        require(launches == {"input_stage": 0, "pool_leaky": 0,
+                             "routing": n_k3, "routing_bwd": 0},
+                f"int8 {path} {name}: kernel launches {launches}")
+        out[f"{path} {name}"] = launches
+    return out
+
+
+def run_wgrad_precision(y_np):
+    """Phase 24 (a measurement): one darknet_r train step at 448 px,
+    batch 32, dropout 0, on noise frames, in f32 (cuDNN, TF32 off) and
+    in f64 on the card from the same weights; each weight gradient's
+    largest error over its max|g| and its cosine with the f64 one."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.rand((BATCH, 448, 448, 3), generator=g, device="cuda") * 2 - 1
+    y = torch.from_numpy(y_np[:BATCH]).cuda()
+    cfg = losses.LossConfig.from_params(dark_train_params("float32"))
+    grads = {}
+    for dtype in (torch.float64, torch.float32):
+        model = DarkNet(1, 43, dtype=dtype, seed=0)
+        if dtype == torch.float64:
+            model.double()
+        model = model.cuda().train()
+        opt = steps.make_optimizer(model)
+        t0 = time.perf_counter()
+        loss, _, _ = steps.train_step(model, opt, x.to(dtype), y, 1e-3, cfg,
+                                      "darknet_r")
+        torch.cuda.synchronize()
+        print(f"[wgrad] darknet_r step {str(dtype)[6:]} at batch {BATCH}, "
+              f"448 px: loss {loss.item()}, "
+              f"{time.perf_counter() - t0:.3f} s (host clock, first call)")
+        grads[dtype] = {n: p.grad.double().cpu()
+                        for n, p in model.named_parameters()
+                        if n.endswith("weight") and ".conv_" in n}
+        del model, opt
+        torch.cuda.empty_cache()
+    rows = []
+    for n, ref in grads[torch.float64].items():
+        got = grads[torch.float32][n]
+        share = ((got - ref).abs().max() / ref.abs().max()).item()
+        cos = F.cosine_similarity(got.flatten(), ref.flatten(), 0).item()
+        rows.append((n, share, cos))
+        print(f"[wgrad]   {n:24s} error/max|g| {share:.3e}  cosine "
+              f"{cos:.9f}")
+    worst = max(rows, key=lambda r: r[1])
+    c18 = [r for r in rows if "conv_18." in r[0]][0]
+    print(f"[wgrad] f32 vs f64 weight gradients at batch {BATCH}, 448 px: "
+          f"worst {worst[0]} {worst[1]:.3e}; conv_18 {c18[1]:.3e} (cosine "
+          f"{c18[2]:.9f}); least cosine {min(r[2] for r in rows):.9f} "
+          f"({SMI})")
+    require(all(np.isfinite(r[1]) for r in rows), "a gradient not finite")
+    return rows
+
+
 def main():
     global SMI
     # phase 1
@@ -1989,7 +2462,7 @@ def main():
     k1 = time_pool()
     k2s = time_input_stage(model.state_dict())
     k2, k2b = k2s[torch.float32], k2s[torch.bfloat16]
-    time_serving(model, frames)
+    serving_ms = time_serving(model, frames)
 
     # phase 7
     k3_err = check_routing()
@@ -2076,6 +2549,24 @@ def main():
 
     # phase 20
     run_darkcapsule(os.path.join(HERE, "build", "chip_smoke", "darkcapsule"))
+
+    # phase 21: phase 5's detector, phase 8's and phase 15's classifiers
+    outputs = run_predict_outputs(
+        frames, y_true, model_dir, classifiers,
+        os.path.join(HERE, "build", "chip_smoke", "outputs"))
+
+    # phase 22
+    int8_launches, _ = run_int8_serving(
+        frames, model_dir, params, serving_ms,
+        os.path.join(HERE, "build", "chip_smoke", "int8"))
+
+    # phase 23
+    int8_two_stage = run_int8_two_stage(frames, model_dir, classifiers)
+    print(f"[int8] launches: serving {int8_launches}; two-stage "
+          f"{int8_two_stage}; phase 21's runs {outputs}")
+
+    # phase 24
+    run_wgrad_precision(dy)
 
     # K1 and K2 on the main paths: darknet_r's (phase 5) and darknet_d's
     # (phase 18) serving

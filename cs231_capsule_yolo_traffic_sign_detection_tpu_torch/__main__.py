@@ -4,12 +4,13 @@ two-stage darknet_r|darknet_d --combine capsule|cnn.
 
     python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
         --model darknet_r|darknet_d|darkcapsule|capsule|cnn \\
-        --mode predict --restore last \\
-        [--dtype float32|bfloat16] [--device cuda|cpu] [--model_dir DIR]
+        --mode predict --restore last [--nms] \\
+        [--dtype float32|bfloat16|int8] [--device cuda|cpu] \\
+        [--model_dir DIR]
     python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
         --model darknet_r|darknet_d --mode predict --restore last \\
         --combine capsule|cnn [--device_crop] [--max_crops 16] \\
-        [--dtype float32|bfloat16] [--device cuda|cpu]
+        [--dtype float32|bfloat16|int8] [--device cuda|cpu]
     python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch \\
         --model darknet_r|darknet_d|darkcapsule|capsule|cnn \\
         --mode train|overfit \\
@@ -21,9 +22,19 @@ two-stage darknet_r|darknet_d --combine capsule|cnn.
 Reads ``<model_dir>/params.json``.  predict reads
 ``<model_dir>/<restore>.ckpt`` (the reference's torch format; else the
 same file under ``<model_dir><train_frac>``, where training writes),
-predicts over the test set (GTSDB frames for a detector, GTSRB crops
-for a classifier) or, when it is absent, the synthetic test set, and
-writes ``<model_dir>/metric_output.txt`` as the JAX CLI does.
+predicts over the test set (GTSDB frames for a detector, read from
+their ``.ppm`` files without cv2 when ``test_names.npy`` lists them;
+GTSRB crops for a classifier) or, when it is absent, the synthetic test
+set, and writes ``<model_dir>/metric_output.txt`` as the JAX CLI does,
+with its plots: ``r_pr.png`` and ``r_auc.png`` (classifiers),
+``detect_ap/d_AP.png`` (detectors), ``combine-<m>_mAP/d&r_mAP_class_<c>
+.png`` (--combine), and each annotated frame as
+``<model_dir>/output/<i>.png`` (detectors and --combine; the JAX CLI
+writes ``.jpg`` through cv2).  ``--nms`` applies the greedy NMS to the
+detector's boxes; ``--dtype int8`` serves the calibrated int8 detector
+(and, fused, the int8 ConvNet; CapsuleNet and the host path's
+classifier stay f32).  ``--show`` is parsed and never read, and
+``--summary`` is always true, as in the JAX CLI.
 darkcapsule has no predict function in the reference: its predict
 loads the test set and writes an empty metric file, restoring nothing.
 With ``--combine capsule|cnn`` the detector's frames go through the two-stage
@@ -45,8 +56,8 @@ fine-tuning on (the darknet19 npz ``params.pretrained_weights``, default
 is ``fine_tune`` in params.json (18 for darknet_r and darknet_d).
 ``--dropout P`` (P >= 0) overrides the json's dropout.  ``--device``
 alone picks the device (darkcapsule's params.json ``device`` key is not
-read).  Any other mode or ``--dtype`` (int8) exits with a "not ported
-yet" message.
+read).  Training refuses ``--dtype int8`` (serving only), and any other
+mode exits with a "not ported yet" message.
 """
 
 import argparse
@@ -58,6 +69,8 @@ import numpy as np
 
 from . import config
 from .data import loader
+from .data.ppm import read_ppm
+from .imageio import write_png
 from .metrics.classification import recog_acc, recog_auc, recog_pr
 from .device import compute_dtype, resolve_device
 from .metrics.detection import (detect_AP, detect_acc, detect_and_recog_acc,
@@ -82,7 +95,8 @@ parser.add_argument("--restore", default=None, help="last | best")
 parser.add_argument("--model_dir", default=None, help="model dir")
 parser.add_argument("--dtype", default="float32",
                     help="compute dtype: float32 | bfloat16 (training keeps "
-                    "f32 master params and Adam moments)")
+                    "f32 master params and Adam moments) | int8 (serving "
+                    "only)")
 parser.add_argument("--device", default="cuda", help="cuda | cpu")
 parser.add_argument("--seed", type=int, default=0, help="random seed")
 parser.add_argument("--lr", type=float, default=1e-3, help="learning rate")
@@ -110,6 +124,15 @@ parser.add_argument("--device_crop", default=False, action="store_true",
 parser.add_argument("--max_crops", default=16, type=int,
                     help="--device_crop only: boxes classified per frame, "
                     "the top by confidence")
+parser.add_argument("--nms", default=False, action="store_true",
+                    help="greedy NMS over the detector's boxes in predict "
+                    "(the reference has none)")
+# the JAX CLI's: --summary's default makes it always true; --show is
+# parsed and never read
+parser.add_argument("--summary", default=True, action="store_true",
+                    help="if summarize model")
+parser.add_argument("--show", default=False, action="store_true",
+                    help="save result")
 
 
 def load_test_set(data_dir, model_name, params):
@@ -125,13 +148,13 @@ def load_test_set(data_dir, model_name, params):
 
 
 def load_test_frames(data_dir, model_name, params):
-    """GTSDB test frames (uint8) and grids; the synthetic set if absent."""
+    """GTSDB test frames (uint8 BGR, read from ``raw_GTSDB/<name>.ppm``
+    when ``test_names.npy`` lists them) and grids; the synthetic set if
+    absent."""
     x, y = load_test_set(data_dir, model_name, params)
     names_path = data_dir + "/test_names.npy"
     if os.path.exists(names_path):
-        import cv2  # only for raw GTSDB frames on disk
-
-        return [cv2.imread(os.path.join(data_dir + "/raw_GTSDB", name))
+        return [read_ppm(os.path.join(data_dir + "/raw_GTSDB", name))
                 for name in np.load(names_path)], y
     # uint8 frames rebuilt from the stored centered tensors
     return [np.clip(im * 128.0 + 128, 0, 255).astype(np.uint8)
@@ -169,24 +192,31 @@ def main(argv=None):
         return
 
     save_path = model_dir + "/metric_output.txt"
+    output = None
     if args.model in CLASSIFIERS:
         # classifier crops are used as loaded
         x, y = load_test_set(data_dir, args.model, params)
         y_hat, _ = class_pred(x, model_dir, params, args.restore,
                               device=args.device)
-        metric_out = {"recog_pr": recog_pr(y, y_hat, params),
-                      "recog_acc": recog_acc(y, y_hat, params),
-                      "recog_auc": recog_auc(y, y_hat, params)}
+        metric_out = {
+            "recog_pr": recog_pr(y, y_hat, params, save=True,
+                                 save_dir=model_dir),
+            "recog_acc": recog_acc(y, y_hat, params),
+            "recog_auc": recog_auc(y, y_hat, params, save=True,
+                                   save_dir=model_dir)}
     elif combine:
         x, y = load_test_frames(data_dir, args.model, params)
         class_model_dir = config.model_dir[args.combine]
         class_params = load_params(class_model_dir, args, args.combine)
-        y_hat, _ = dark_class_pred(
+        y_hat, output = dark_class_pred(
             x, model_dir, params, class_model_dir, class_params,
             args.restore, device=args.device, device_crop=args.device_crop,
             max_crops=args.max_crops)
+        plot_dir = model_dir + f"/combine-{args.combine}_mAP"
+        os.makedirs(plot_dir, exist_ok=True)
         metric_out = {
-            "detect_and_recog_mAP": detect_and_recog_mAP(y, y_hat, params),
+            "detect_and_recog_mAP": detect_and_recog_mAP(
+                y, y_hat, params, save=True, save_dir=plot_dir),
             "detect_and_recog_acc": detect_and_recog_acc(y, y_hat, params)}
         save_path = model_dir + f"/combine-{args.combine}_metric_output.txt"
     elif args.model == "darkcapsule":
@@ -197,14 +227,22 @@ def main(argv=None):
         metric_out = {}
     else:
         x, y = load_test_frames(data_dir, args.model, params)
-        y_hat, _ = dark_pred(x, model_dir, params, args.restore,
-                             device=args.device)
-        metric_out = {"detect_AP": detect_AP(y, y_hat, params),
+        plot_dir = model_dir + "/detect_ap"
+        os.makedirs(plot_dir, exist_ok=True)
+        y_hat, output = dark_pred(x, model_dir, params, args.restore, y=y,
+                                  use_nms=args.nms, device=args.device)
+        metric_out = {"detect_AP": detect_AP(y, y_hat, params, save=True,
+                                             save_dir=plot_dir),
                       "detect_acc": detect_acc(y, y_hat, params)}
     with open(save_path, "w") as text_file:
         for k, v in metric_out.items():
             text_file.write("{}:{}, ".format(k, v))
             print("{}:{}, ".format(k, v))
+    if output is not None:
+        out_dir = os.path.join(model_dir, "output")
+        os.makedirs(out_dir, exist_ok=True)
+        for i, image in enumerate(output):
+            write_png(os.path.join(out_dir, f"{i}.png"), image)
 
 
 def load_params(model_dir, args, model):
@@ -215,6 +253,7 @@ def load_params(model_dir, args, model):
     params.compute_dtype = args.dtype
     params.train_frac = args.train_frac
     params.npy = args.npy
+    params.summary = bool(args.summary)
     if args.dropout >= 0:
         params.dropout = args.dropout
     return params

@@ -34,3 +34,11 @@ model_dir = {
 # maximum number of samples used for the train/eval metric
 # (reference config.py:53)
 max_metric_samples = 1000
+
+# plot colours (JAX config.py:58-64, the reference's config.py:45-50)
+colors = [
+    "#1f77b4", "#aec7e8", "#ff7f0e", "#ffbb78", "#2ca02c",
+    "#98df8a", "#d62728", "#ff9896", "#9467bd", "#c5b0d5",
+    "#8c564b", "#c49c94", "#e377c2", "#f7b6d2", "#7f7f7f",
+    "#c7c7c7", "#bcbd22", "#dbdb8d", "#17becf", "#9edae5",
+]

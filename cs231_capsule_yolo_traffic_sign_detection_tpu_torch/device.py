@@ -33,11 +33,24 @@ def resolve_device(device="cuda"):
 
 
 def compute_dtype(name):
-    """--dtype spelling -> torch dtype (float32 | bfloat16 and aliases)."""
+    """--dtype spelling -> torch dtype: float32 | bfloat16 (and aliases)
+    | int8, the quantized serving path (ops/quant.py), which training
+    refuses."""
     name = str(name or "float32").lower()
     if name in ("float32", "f32"):
         return torch.float32
     if name in ("bfloat16", "bf16"):
         return torch.bfloat16
-    raise ValueError(
-        f"dtype {name!r} is not ported yet: float32 | bfloat16")
+    if name == "int8":
+        return torch.int8
+    raise ValueError(f"unknown compute dtype {name!r}: float32 | bfloat16 "
+                     "| int8")
+
+
+def module_dtype(name):
+    """The dtype a module is built in for --dtype ``name``: int8 serving
+    builds f32 modules and quantizes them after the restore (the JAX
+    registry's rule); the classifier of an int8 pipeline that is not
+    quantized (CapsuleNet, or any on the host path) serves f32."""
+    dtype = compute_dtype(name)
+    return torch.float32 if dtype == torch.int8 else dtype

@@ -151,3 +151,31 @@ def jax_variables_to_state_dict(variables_np, model_name):
         return _darkcapsule(variables_np["params"],
                             variables_np["batch_stats"])
     return _darknet(variables_np["params"], variables_np["batch_stats"])
+
+
+def _tensors(tree):
+    """numpy leaves of dicts and lists -> torch tensors (copies)."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v) for v in tree]
+    return torch.from_numpy(np.array(tree))
+
+
+def jax_qparams_to_port(qparams_np, model_name):
+    """The JAX package's quantized pytree (ops/quant.py, numpy leaves) ->
+    the port's (ops/quant.py): the same int8 kernels, scales and biases
+    as tensors.  darknet_r / darknet_d: `quantize_darknet`'s layout,
+    unchanged.  cnn: `quantize_convnet`'s, with the dense layer's int8
+    rows moved from JAX's HWC flatten to the port's CHW one (its
+    per-output scales are per column, so they stay)."""
+    q = _tensors(qparams_np)
+    if model_name in DARKNET_MODELS:
+        return q
+    if model_name != "cnn":
+        raise ValueError(f"no int8 form of {model_name!r}: cnn | "
+                         f"{' | '.join(DARKNET_MODELS)}")
+    wq = q["dense"]["wq"]
+    q["dense"]["wq"] = wq[torch.from_numpy(np.argsort(
+        dense_chw_perm(wq.shape[0])))].contiguous()
+    return q

@@ -7,10 +7,18 @@ micro averages the JAX functions return, computed as sklearn's
 compute them: the one-hot labels and the scores are flattened, tied
 scores form one threshold, and ROC points collinear with their
 neighbours are dropped before the trapezoid sum.  The per-class curves
-and the PNG plots are not ported.
+are not computed (the JAX functions draw only the micro ones).  With
+``save`` the micro curves are written as the JAX package's
+``r_auc.png`` and ``r_pr.png``, drawn by metrics/plots.py (no text,
+no fill under the step).
 """
 
+import os
+
 import numpy as np
+
+from .. import config
+from . import plots
 
 
 def recog_acc(y, y_hat, params=None):
@@ -36,8 +44,14 @@ def _threshold_counts(y_true, y_score):
     return fps, tps
 
 
-def recog_auc(y, y_hat, params):
-    """Micro-averaged ROC-AUC."""
+def _plot_path(params, save_dir, name):
+    return os.path.join(save_dir if save_dir is not None
+                        else config.model_dir[params.model], name)
+
+
+def recog_auc(y, y_hat, params, save=False, save_dir=None):
+    """Micro-averaged ROC-AUC; ``save`` writes the micro ROC step curve
+    (dark orange) and the diagonal (navy) to ``<save_dir>/r_auc.png``."""
     fps, tps = _threshold_counts(*_micro(y, y_hat, int(params.n_classes)))
     if fps.shape[0] > 2:  # drop points collinear with their neighbours
         keep = np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)),
@@ -46,17 +60,27 @@ def recog_auc(y, y_hat, params):
     fpr = np.r_[0.0, fps] / fps[-1]
     tpr = np.r_[0.0, tps] / tps[-1]
     # the trapezoid rule as sklearn's auc evaluates it
+    if save:
+        plots.save_plot(_plot_path(params, save_dir, "r_auc.png"),
+                        [(*plots.step_post(fpr, tpr), "#ff8c00"),
+                         ([0, 1], [0, 1], "#000080")],
+                        (0.0, 1.0), (0.0, 1.05))
     d = fpr[1:] - fpr[:-1]
     return float(np.sum(d * (tpr[1:] + tpr[:-1]) / 2.0, dtype=np.float64))
 
 
-def recog_pr(y, y_hat, params):
+def recog_pr(y, y_hat, params, save=False, save_dir=None):
     """Micro-averaged average precision (the step integral of the
-    precision-recall curve)."""
+    precision-recall curve); ``save`` writes the micro PR step curve
+    (blue) to ``<save_dir>/r_pr.png``."""
     fps, tps = _threshold_counts(*_micro(y, y_hat, int(params.n_classes)))
     ps = tps + fps
     precision = np.where(ps != 0, tps / ps, 0.0)
     recall = tps / tps[-1]
     precision = np.concatenate((precision[::-1], [1.0]))
     recall = np.concatenate((recall[::-1], [0.0]))
+    if save:
+        plots.save_plot(_plot_path(params, save_dir, "r_pr.png"),
+                        [(*plots.step_post(recall, precision), "#0000ff")],
+                        (0.0, 1.0), (0.0, 1.05))
     return float(max(0.0, -np.sum(np.diff(recall) * precision[:-1])))

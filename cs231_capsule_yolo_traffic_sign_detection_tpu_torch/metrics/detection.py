@@ -1,13 +1,21 @@
-"""Detection metrics (numpy): the subset of the JAX metrics/detection.py
-that the detectors' predict mode and training and the two-stage
-pipeline report — COCO-style AP over an (IoU x confidence) threshold
-sweep, F1 at conf .5 / IoU .5, their class-wise forms, and
-darkcapsule's cell-presence F1.  No plots; `darkcapsule_acc` (the
-unregistered DarkCapsuleNet3's) is not ported."""
+"""Detection metrics (numpy): the JAX metrics/detection.py for the
+detectors' predict mode and training and the two-stage pipeline —
+the scalar IoU and per-image confusion, COCO-style AP over an (IoU x
+confidence) threshold sweep, F1 at conf .5 / IoU .5, their class-wise
+forms, and darkcapsule's cell-presence F1.  The sweep runs in C++
+(metrics/_native.py, csrc/confusion.cpp) unless ``use_native=False``
+asks for numpy; both count the same.  With ``save`` the AP curves are
+written as the JAX package's PNG files, drawn by metrics/plots.py
+(no text).  `darkcapsule_acc` (the unregistered DarkCapsuleNet3's) is
+not ported."""
+
+import os
 
 import numpy as np
 
+from .. import config
 from ..ops import boxes as box_ops
+from . import plots
 
 IOU_THS = np.linspace(0.5, 0.95, 10)
 CONF_THS = np.linspace(0, 1, 100)
@@ -26,6 +34,30 @@ def _pairwise_iou(gt_xy, pred_xy):
     area_g = (g[..., 2] - g[..., 0]) * (g[..., 3] - g[..., 1])
     area_p = (p[..., 2] - p[..., 0]) * (p[..., 3] - p[..., 1])
     return np.where(inter > 0, inter / (area_g + area_p - inter), 0.0)
+
+
+def calc_iou_individual(gt_box, pred_box):
+    """IoU of one gt and one pred corner box: exactly 0 where they do not
+    overlap; inverted corners raise AssertionError, as the reference's
+    assertion does."""
+    gt = np.asarray(gt_box, dtype=float)
+    pred = np.asarray(pred_box, dtype=float)
+    for name, b in (("pred", pred), ("gt", gt)):
+        if b[2] < b[0] or b[3] < b[1]:
+            raise AssertionError(
+                f"inverted corners in {name} box {b.tolist()}")
+    return float(_pairwise_iou(gt[None, :], pred[None, :])[0, 0])
+
+
+def single_img_confusion(y_, y_hat_, iou_th):
+    """(tp, fp, fn) of one image at one IoU threshold: a gt is hit if any
+    pred overlaps it above ``iou_th``, a pred if it overlaps any gt."""
+    iou = _pairwise_iou(np.asarray(y_), np.asarray(y_hat_))
+    hits = iou > iou_th
+    n_gt_hit = int(hits.any(axis=1).sum())
+    n_pred_hit = int(hits.any(axis=0).sum())
+    n1, n2 = iou.shape
+    return n_gt_hit, n2 - n_pred_hit, n1 - n_gt_hit
 
 
 def precision_and_recall(tp, fp, fn):
@@ -84,13 +116,20 @@ def decode_with_conf(y, params, image_hw=None):
              "cls": None if cls is None else cls[i]} for i in range(batch)]
 
 
-def confusion_sweep(gt, pred, iou_ths, conf_ths, cls_filter=None):
+def confusion_sweep(gt, pred, iou_ths, conf_ths, cls_filter=None,
+                    use_native=True):
     """TP/FP/FN over the full (iou_th x conf_th) grid, all images.
 
     gt/pred from `decode_with_conf`; thresholding is strict conf > th.
     A gt counts as hit if any included pred overlaps it above iou_th; a
-    pred counts as hit if it overlaps any included gt.
+    pred counts as hit if it overlaps any included gt.  ``use_native``
+    runs the sweep in C++ (a failed build raises); else in numpy below.
     """
+    if use_native:
+        from ._native import confusion_sweep_native
+
+        return confusion_sweep_native(gt, pred, iou_ths, conf_ths,
+                                      cls_filter)
     iou_ths = np.asarray(iou_ths)
     conf_ths = np.asarray(conf_ths)
     nI, nC = iou_ths.size, conf_ths.size
@@ -125,13 +164,30 @@ def _pr_curves(TP, FP, FN):
     return p, r
 
 
-def detect_AP(y, y_hat, params):
+def _save_pr_plot(path, p, r):
+    """The PR curve of each IoU threshold (recall on x, precision on y,
+    axes to 1.1), coloured as the JAX package's (config.colors[2i])."""
+    plots.save_plot(path, [(r[i], p[i], config.colors[i * 2])
+                           for i in range(len(IOU_THS))],
+                    (0.0, 1.1), (0.0, 1.1))
+
+
+def _plot_dir(params, save_dir):
+    return save_dir if save_dir is not None else \
+        config.model_dir[params.model]
+
+
+def detect_AP(y, y_hat, params, save=False, save_dir=None):
     """COCO-style AP: 11-point AP averaged over IoU .5:.05:.95, with a
-    100-point confidence sweep."""
+    100-point confidence sweep.  ``save`` writes the PR curves to
+    ``<save_dir>/d_AP.png`` (default: the model's dir)."""
     TP, FP, FN = confusion_sweep(decode_with_conf(y, params),
                                  decode_with_conf(y_hat, params),
                                  IOU_THS, CONF_THS)
     p, r = _pr_curves(TP, FP, FN)
+    if save:
+        _save_pr_plot(os.path.join(_plot_dir(params, save_dir), "d_AP.png"),
+                      p, r)
     return float(np.mean([average_precision(p[i], r[i])
                           for i in range(len(IOU_THS))]))
 
@@ -161,11 +217,13 @@ def detect_and_recog_acc(y, y_hat, params):
     return 2 * p * r / (p + r + 1e-8)
 
 
-def detect_and_recog_mAP(y, y_hat, params):
+def detect_and_recog_mAP(y, y_hat, params, save=False, save_dir=None):
     """Class-wise COCO-style AP: per class, the 11-point AP at each IoU
     threshold over the confidence sweep, averaged over the classes
     present in ``y``.  As the reference, it sets ``params.n_classes`` to
-    43 first (and leaves it so).  The two-stage pipeline's metric."""
+    43 first (and leaves it so).  The two-stage pipeline's metric.
+    ``save`` writes each class's PR curves to
+    ``<save_dir>/d&r_mAP_class_<c>.png``."""
     params.n_classes = 43
     gt = decode_with_conf(y, params)
     pred = decode_with_conf(y_hat, params)
@@ -174,6 +232,9 @@ def detect_and_recog_mAP(y, y_hat, params):
         TP, FP, FN = confusion_sweep(gt, pred, IOU_THS, CONF_THS,
                                      cls_filter=c)
         p, r = _pr_curves(TP, FP, FN)
+        if save:
+            _save_pr_plot(os.path.join(_plot_dir(params, save_dir),
+                                       f"d&r_mAP_class_{c}.png"), p, r)
         avg_ps.extend(average_precision(p[i], r[i])
                       for i in range(len(IOU_THS)))
     y = np.asarray(y)

@@ -2,16 +2,19 @@
 ops/decode.py).
 
 Every grid candidate is decoded into a fixed-size box tensor sorted by
-confidence with ``torch.topk(sorted=True)``, plus a validity mask and
-the candidate's grid index.  `to_flat_host` turns that into the
-reference's flat lists in grid-scan order (row, col, box), restored
-from the index: the order in which ``topk`` returns tied confidences
-on the card therefore never reaches the caller.  No NMS.
+confidence, ties in grid-scan order (row, col, box) as ``jax.lax.top_k``
+keeps them, plus a validity mask and the candidate's grid index.
+`to_flat_host` turns that into the reference's flat lists in grid-scan
+order, restored from the index.  `nms_mask` is the JAX package's
+optional greedy NMS over that sorted list (off by default: the
+reference has none).
 """
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .boxes import iou_xy
 
 
 def decode_grid(y, *, n_classes, n_boxes, img_size, max_boxes=None,
@@ -54,8 +57,10 @@ def decode_grid(y, *, n_classes, n_boxes, img_size, max_boxes=None,
     else:
         cls = torch.zeros(conf.shape, dtype=torch.int32, device=y.device)
 
-    top_conf, top_idx = torch.topk(conf.reshape(batch, n_cand), k, dim=1,
-                                   sorted=True)
+    # a stable descending sort: tied confidences keep grid-scan order
+    top_conf, top_idx = torch.sort(conf.reshape(batch, n_cand), dim=1,
+                                   descending=True, stable=True)
+    top_conf, top_idx = top_conf[:, :k], top_idx[:, :k]
     out_xy = torch.gather(xy.reshape(batch, n_cand, 4), 1,
                           top_idx[..., None].expand(batch, k, 4))
     out_cls = torch.gather(cls.reshape(batch, n_cand), 1, top_idx)
@@ -66,6 +71,27 @@ def decode_grid(y, *, n_classes, n_boxes, img_size, max_boxes=None,
         out = {name: F.pad(t, (0, 0, 0, pad) if t.dim() == 3 else (0, pad))
                for name, t in out.items()}
     return out
+
+
+def nms_mask(xy, conf, valid, iou_th=0.5):
+    """Greedy NMS over `decode_grid`'s confidence-sorted fixed-size list
+    (JAX ops/decode.py:nms_mask), on xy's device in plain torch.
+
+    Slot by slot in list order, a slot still kept suppresses every LATER
+    slot whose IoU with it exceeds ``iou_th`` (strict); degenerate padded
+    slots (zero area, 0/0) count as IoU 0 and never suppress anything.
+    ``conf`` is unused, as in JAX: the list is already sorted.  Returns
+    the updated validity mask (batch, n) bool.
+    """
+    del conf
+    n = xy.shape[-2]
+    iou = torch.nan_to_num(iou_xy(xy, xy))             # (batch, n, n)
+    later = torch.ones(n, n, dtype=torch.bool, device=xy.device).triu(1)
+    over = (iou > iou_th) & later
+    keep = valid.clone()
+    for i in range(n - 1):
+        keep &= ~(over[:, i] & keep[:, i, None])
+    return keep
 
 
 def to_flat_host(decoded, image_hw=None, img_size=None, with_classes=True):

@@ -1,39 +1,45 @@
 """Inference (counterpart of the JAX predict.py: dark_pred, class_pred,
 dark_class_pred).
 
-`dark_pred`: restore the reference-format checkpoint of a darknet
+`dark_detect`: restore the reference-format checkpoint of a darknet
 detector (darknet_r, B=1 C=43, or darknet_d, B=2 C=0), fold BN, resize
-on the device, run the serving forward (ops/input_stage.
-darknet_serving_apply: the input-stage and pool+leaky kernels on a
-card) batch by batch, decode the full grid on the device and flatten
-the boxes in grid-scan order; with ``crops``, also each box's crop from
-its full-resolution frame.  Box drawing is not ported.
+on the device, run the serving forward batch by batch (f32 / bf16:
+ops/input_stage.darknet_serving_apply, the input-stage and pool+leaky
+kernels on a card; int8: the calibrated int8-resident chain of
+ops/quant.py), decode the full grid on the device, optionally NMS, and
+flatten the boxes in grid-scan order; with ``crops``, also each box's
+crop from its full-resolution frame.  `dark_pred` is the JAX function's
+contract on top: the frames annotated (viz.py), the ground truth too.
 
 `class_pred`: restore the classifier ``params.model`` names (CapsuleNet,
 with the fused routing kernel on a card, or ConvNet) and score crops
 batch by batch.
 
-`dark_class_pred`: the two-stage detect-then-classify pipeline, on
+`dark_class_detect`: the two-stage detect-then-classify pipeline, on
 either darknet detector (on darknet_d the combine metrics come out
 nan / 0.0, as in the JAX package: metrics/detection.py).  By
-default the reference's composition through the host (dark_pred's
+default the reference's composition through the host (dark_detect's
 crops, centered, through class_pred, then `combine_y_hat`); with
 ``device_crop`` one pass on the device per detector batch
-(`_dark_class_pred_fused`).
+(`_dark_class_pred_fused`).  `dark_class_pred` adds the annotated
+frames, the JAX function's contract.
 
 darkcapsule has no predict function, as in the reference (JAX
 predict.py's registry): the CLI loads its test set and writes an empty
 metric file.
 """
 
+import functools
+
 import numpy as np
 import torch
 
+from . import viz
 from .data.loader import center_rgb
-from .device import compute_dtype, resolve_device
+from .device import compute_dtype, module_dtype, resolve_device
 from .models import CapsuleNet, ConvNet, DarkNet
-from .ops import decode as decode_ops
-from .ops.boxes import combine_y_hat
+from .ops import decode as decode_ops, quant
+from .ops.boxes import combine_y_hat, y_to_boxes_vec
 from .ops.crop import crop_resize_bilinear, frame_crops
 from .ops.input_stage import darknet_serving_apply, prepare_serving
 from .ops.preprocess import preprocess_images
@@ -63,19 +69,20 @@ def restore_darknet(params, model_dir, restore_file):
 
 def restore_capsule(params, model_dir, restore_file):
     """CapsuleNet from its checkpoint (see `_restore`), computing in
-    ``params.compute_dtype``."""
+    ``params.compute_dtype`` (f32 under int8: no quantized routing)."""
     return _restore(CapsuleNet(
         n_classes=int(params.n_classes),
-        dtype=compute_dtype(params.get("compute_dtype", "float32"))),
+        dtype=module_dtype(params.get("compute_dtype", "float32"))),
         params, model_dir, restore_file)
 
 
 def restore_convnet(params, model_dir, restore_file):
     """ConvNet from its checkpoint (see `_restore`), computing in
-    ``params.compute_dtype``."""
+    ``params.compute_dtype`` (built f32 under int8: the fused path
+    quantizes it, the host path serves it f32)."""
     return _restore(ConvNet(
         n_classes=int(params.n_classes),
-        dtype=compute_dtype(params.get("compute_dtype", "float32"))),
+        dtype=module_dtype(params.get("compute_dtype", "float32"))),
         params, model_dir, restore_file)
 
 
@@ -90,37 +97,65 @@ def restore_classifier(params, model_dir, restore_file):
     return CLASSIFIERS[params.model](params, model_dir, restore_file)
 
 
-def dark_pred(images, model_dir, params, restore_file, device="cuda",
-              conf_th=0.5, crops=False):
-    """Darknet detection inference.
+def _serve_batches(det, images, params, dev):
+    """The detector over ``images`` in batches of ``params.batch_size``:
+    yields each batch's input on the device (the port's resize, 0-255
+    uncentered) and its f32 grid.
 
-    images: uint8 (H, W, 3) frames, fed uncentered (0-255) as the
+    ``params.compute_dtype`` float32 / bfloat16: the BN-folded serving
+    forward (K2 for block 1, K1 at the other four pools on a card).
+    int8 (JAX predict.py:153-171): BN folded, weights quantized and the
+    18 activation scales calibrated on the FIRST batch, then the
+    int8-resident chain (ops/quant.py: im2col and s8 x s8 -> s32
+    products, int8 pools; neither K1 nor K2 runs)."""
+    dtype = compute_dtype(params.get("compute_dtype", "float32"))
+    nb, nc = int(params.n_boxes), int(params.n_classes)
+    size, bs = int(params.darknet_input), int(params.batch_size)
+    sd = det.state_dict()
+    p = None if dtype == torch.int8 else prepare_serving(sd, dtype)
+    q = None
+    for i in range(0, len(images), bs):
+        xb = preprocess_images(images[i:i + bs], size, dev)
+        if p is not None:
+            yb = darknet_serving_apply(p, xb, n_boxes=nb, n_classes=nc,
+                                       dtype=dtype)
+        else:
+            if q is None:   # static int8: calibrated once, on this batch
+                q = quant.quantize_darknet(sd, x_cal=xb)
+            yb = quant.darknet_int8_resident_apply(q, xb, n_boxes=nb,
+                                                   n_classes=nc)
+        yield xb, yb
+
+
+def dark_detect(images, model_dir, params, restore_file, device="cuda",
+                conf_th=0.5, use_nms=False, crops=False):
+    """Darknet detection without drawing: the y_hat grid and the boxes.
+
+    images: uint8 (H, W, 3) BGR frames, fed uncentered (0-255) as the
     reference's predict path does.  ``params.compute_dtype`` selects
-    float32 or bfloat16 serving (heads stay f32).  Returns the y_hat grid
-    (numpy, f32) and (image_indices, boxes_xy, classes_or_None) with
-    boxes in each image's own frame; with ``crops``, returns (y_hat,
-    crops, image_indices, boxes_xy) instead, the crops uint8
+    float32, bfloat16 or int8 serving (`_serve_batches`; heads f32).
+    ``use_nms`` applies `decode_ops.nms_mask` after the decode (JAX
+    predict.py:186-189; off by default, COMPAT #17).  Returns the y_hat
+    grid (numpy, f32) and (image_indices, boxes_xy, classes_or_None)
+    with boxes in each image's own frame; with ``crops``, returns
+    (y_hat, crops, image_indices, boxes_xy) instead, the crops uint8
     (n_boxes, capsule_input, capsule_input, 3) cut from the frames
     (`ops.crop.frame_crops`).
     """
     dev = resolve_device(device)
-    dtype = compute_dtype(params.get("compute_dtype", "float32"))
     model = restore_darknet(params, model_dir, restore_file).to(dev)
     nb, nc = int(params.n_boxes), int(params.n_classes)
     size = int(params.darknet_input)
-    bs = int(params.batch_size)
     image_hw = np.array([im.shape[0:2] for im in images])
 
     with torch.inference_mode():
-        p = prepare_serving(model.state_dict(), dtype)
-        outs = []
-        for i in range(0, len(images), bs):
-            xb = preprocess_images(images[i:i + bs], size, dev)
-            outs.append(darknet_serving_apply(
-                p, xb, n_boxes=nb, n_classes=nc, dtype=dtype))
-        y_hat = torch.cat(outs)
+        y_hat = torch.cat([yb for _, yb in _serve_batches(
+            model, images, params, dev)])
         decoded = decode_ops.decode_grid(
             y_hat, n_classes=nc, n_boxes=nb, img_size=size, conf_th=conf_th)
+        if use_nms:
+            decoded = dict(decoded, valid=decode_ops.nms_mask(
+                decoded["xy"], decoded["conf"], decoded["valid"]))
         boxes = decode_ops.to_flat_host(
             decoded, image_hw=image_hw, img_size=size, with_classes=nc != 0)
         y_hat = y_hat.cpu().numpy()
@@ -130,6 +165,32 @@ def dark_pred(images, model_dir, params, restore_file, device="cuda",
         return (y_hat, frame_crops(images, image_indices, boxes_xy,
                                    int(params.capsule_input), dev),
                 image_indices, boxes_xy)
+
+
+def dark_pred(images, model_dir, params, restore_file, is_end=True,
+              conf_th=0.5, y=None, use_nms=False, device="cuda"):
+    """Darknet detection inference, the JAX ``dark_pred`` contract
+    (predict.py:114-222): `dark_detect`, then with ``is_end`` the frames
+    annotated (`viz.draw_boxes_vec`: predictions green with their class
+    names, and with ``y`` the ground truth's boxes red).  Returns
+      is_end:  (y_hat grid, annotated frames)
+      else:    (y_hat grid, crops, image_indices, boxes_xy).
+    """
+    out = dark_detect(images, model_dir, params, restore_file,
+                      device=device, conf_th=conf_th, use_nms=use_nms,
+                      crops=not is_end)
+    if not is_end:
+        return out
+    y_hat, (image_indices, boxes_xy, classes) = out
+    output_images, _ = viz.draw_boxes_vec(images, image_indices, boxes_xy,
+                                          classes)
+    if y is not None:
+        t_idx, t_xy, t_cls = y_to_boxes_vec(
+            y, params, image_hw=np.array([im.shape[:2] for im in images]),
+            conf_th=conf_th)
+        output_images, _ = viz.draw_boxes_vec(output_images, t_idx, t_xy,
+                                              t_cls, color=(0, 0, 255))
+    return y_hat, output_images
 
 
 def class_pred(x, model_dir, params, restore_file, device="cuda"):
@@ -153,27 +214,28 @@ def class_pred(x, model_dir, params, restore_file, device="cuda"):
     return y_hat, np.argmax(y_hat, axis=1)
 
 
-def dark_class_pred(images, dark_model_dir, dark_params, class_model_dir,
-                    class_params, restore_file, device="cuda",
-                    device_crop=False, max_crops=16):
-    """Two-stage detect-then-classify pipeline.
+def dark_class_detect(images, dark_model_dir, dark_params,
+                      class_model_dir, class_params, restore_file,
+                      device="cuda", device_crop=False, max_crops=16):
+    """Two-stage detect-then-classify pipeline, without drawing.
 
     The detector's checkpoint comes from ``dark_model_dir``, the
     classifier's (``class_params.model``: capsule or cnn) from
     ``class_model_dir``, both ``restore_file``.  By default the
-    reference's composition: `dark_pred`'s crops from the
-    full-resolution frames, centered, through `class_pred`.  With
-    ``device_crop`` one device pass per detector batch
-    (`_dark_class_pred_fused`, its deviations there).  Returns the
+    reference's composition: `dark_detect`'s crops from the
+    full-resolution frames, centered, through `class_pred` (under
+    --dtype int8 the int8 detector, then the classifier in f32, as the
+    JAX package).  With ``device_crop`` one device pass per detector
+    batch (`_dark_class_pred_fused`, its deviations there).  Returns the
     combined grid (`combine_y_hat`, float64) and the detections
     (image_indices, boxes_xy in each frame's pixels, the classifier's
-    argmax classes); box drawing is not ported.
+    argmax classes).
     """
     if device_crop:
         return _dark_class_pred_fused(
             images, dark_model_dir, dark_params, class_model_dir,
             class_params, restore_file, device=device, max_crops=max_crops)
-    dark_y_hat, crops, image_indices, boxes_xy = dark_pred(
+    dark_y_hat, crops, image_indices, boxes_xy = dark_detect(
         images, dark_model_dir, dark_params, restore_file, device=device,
         crops=True)
     class_y_hat, classes = class_pred(center_rgb(crops), class_model_dir,
@@ -184,64 +246,94 @@ def dark_class_pred(images, dark_model_dir, dark_params, class_model_dir,
     return y_hat, (image_indices, boxes_xy, classes)
 
 
-def two_stage_tail(x, y, classify, *, n_boxes, n_classes, img_size,
-                   cap_input, max_crops, conf_th):
-    """Decode -> crop -> center -> classify on the device: the fused
-    pipeline after the detector (JAX export._two_stage_tail).
+def dark_class_pred(images, dark_model_dir, dark_params, class_model_dir,
+                    class_params, restore_file, device="cuda",
+                    device_crop=False, max_crops=16):
+    """The two-stage pipeline with the JAX ``dark_class_pred`` contract
+    (predict.py:225-272): `dark_class_detect`, then the frames annotated
+    with the boxes and the classifier's class names, on both the host and
+    the fused path.  Returns (combined grid, annotated frames)."""
+    y_hat, (image_indices, boxes_xy, classes) = dark_class_detect(
+        images, dark_model_dir, dark_params, class_model_dir, class_params,
+        restore_file, device=device, device_crop=device_crop,
+        max_crops=max_crops)
+    output_images, _ = viz.draw_boxes_vec(images, image_indices, boxes_xy,
+                                          classes)
+    return y_hat, output_images
 
-    x (B, S, S, 3) the detector's input, y (B, g, g, D) its grid; the top
-    ``max_crops`` boxes of each image by confidence are cropped from x,
-    those at or under ``conf_th`` as zeros, and ``classify`` scores all
-    B * max_crops centered crops at once.  Returns the decode dict (see
-    `decode_ops.decode_grid`) with ``class_scores`` (B, max_crops,
-    n_classes) f32."""
+
+def tail_crops(x, y, *, n_boxes, n_classes, img_size, cap_input, max_crops,
+               conf_th):
+    """Decode -> crop -> center on the device: the fused pipeline after
+    the detector, without its classifier (JAX export.make_crops_fn's
+    tail).  x (B, S, S, 3) the detector's input, y (B, g, g, D) its grid;
+    the top ``max_crops`` boxes of each image by confidence are cropped
+    from x, those at or under ``conf_th`` as zeros.  Returns the decode
+    dict (see `decode_ops.decode_grid`) and the B * max_crops centered
+    crops (B * max_crops, cap_input, cap_input, 3)."""
     d = decode_ops.decode_grid(y, n_classes=n_classes, n_boxes=n_boxes,
                                img_size=img_size, max_boxes=max_crops,
                                conf_th=conf_th)
     crops = crop_resize_bilinear(x, d["xy"], cap_input, valid=d["valid"])
     b, m = crops.shape[:2]
-    scores = classify(center_rgb(crops.reshape(b * m, cap_input, cap_input,
-                                               -1)))
-    return dict(d, class_scores=scores.float().reshape(b, m, -1))
+    return d, center_rgb(crops.reshape(b * m, cap_input, cap_input, -1))
+
+
+def two_stage_tail(x, y, classify, **tail):
+    """`tail_crops`, then ``classify`` on all crops at once (JAX
+    export._two_stage_tail).  Returns the decode dict with
+    ``class_scores`` (B, max_crops, n_classes) f32."""
+    d, flat = tail_crops(x, y, **tail)
+    scores = classify(flat)
+    return dict(d, class_scores=scores.float().reshape(
+        x.shape[0], tail["max_crops"], -1))
 
 
 def _dark_class_pred_fused(images, dark_model_dir, dark_params,
                            class_model_dir, class_params, restore_file,
                            device="cuda", max_crops=16, conf_th=0.5):
     """Fused two-stage pipeline (JAX COMPAT #33): per detector batch, on
-    the device, the serving forward (K2, K1), `two_stage_tail` with the
-    classifier (K3 once for CapsuleNet, at B = batch * max_crops), then
-    one fetch.  ``dark_params.compute_dtype`` runs the detector in f32
-    or bf16, ``class_params.compute_dtype`` the classifier (the CLI sets
-    both from --dtype).
+    the device, the detector (`_serve_batches`), `two_stage_tail` with
+    the classifier, then one fetch.  ``dark_params.compute_dtype`` runs
+    the detector in f32 or bf16 (K2, K1) or int8, ``class_params``'s
+    the classifier (the CLI sets both from --dtype).  Under int8 (JAX
+    predict.py:312-340, export.make_int8_two_stage_fn) the ConvNet runs
+    as `quant.convnet_int8_apply`, calibrated on the crops `tail_crops`
+    cuts from the first batch after the f32 detector module (cuDNN, no
+    kernel of the port; JAX export.make_crops_fn); CapsuleNet stays f32
+    with K3 (COMPAT #35).
 
     Deviations from the host composition (as in the JAX package): crops
     are sampled from the darknet_input-sized detector input, not the
     full-resolution frame, and only the top ``max_crops`` boxes of an
     image are classified; a message counts the above-threshold boxes
-    that cap left out.  Same return contract as `dark_class_pred`.
+    that cap left out.  Same return contract as `dark_class_detect`.
     """
     dev = resolve_device(device)
-    dtype = compute_dtype(dark_params.get("compute_dtype", "float32"))
     det = restore_darknet(dark_params, dark_model_dir, restore_file).to(dev)
     cls = restore_classifier(class_params, class_model_dir,
                              restore_file).to(dev)
-    nb, nc = int(dark_params.n_boxes), int(dark_params.n_classes)
+    nb = int(dark_params.n_boxes)
     size = int(dark_params.darknet_input)
-    bs = int(dark_params.batch_size)
     image_hw = np.array([im.shape[:2] for im in images])
-    tail = dict(n_boxes=nb, n_classes=nc, img_size=size,
+    tail = dict(n_boxes=nb, n_classes=int(dark_params.n_classes),
+                img_size=size,
                 cap_input=int(class_params.get("capsule_input", 32)),
                 max_crops=max_crops, conf_th=conf_th)
+    quantize_cls = (class_params.model == "cnn" and compute_dtype(
+        dark_params.get("compute_dtype", "float32")) == torch.int8)
 
     with torch.inference_mode():
-        p = prepare_serving(det.state_dict(), dtype)
         outs = []
-        for i in range(0, len(images), bs):
-            xb = preprocess_images(images[i:i + bs], size, dev)
-            yb = darknet_serving_apply(p, xb, n_boxes=nb, n_classes=nc,
-                                       dtype=dtype)
-            outs.append(dict(two_stage_tail(xb, yb, cls, **tail), grid=yb))
+        classify = cls
+        for xb, yb in _serve_batches(det, images, dark_params, dev):
+            if quantize_cls and classify is cls:
+                _, crops_cal = tail_crops(xb, det(xb), **tail)
+                classify = functools.partial(
+                    quant.convnet_int8_apply,
+                    quant.quantize_convnet(cls.state_dict(), crops_cal))
+            outs.append(dict(two_stage_tail(xb, yb, classify, **tail),
+                             grid=yb))
         out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
         y_hat = out.pop("grid").cpu().numpy()
         scores = out.pop("class_scores")

@@ -94,6 +94,10 @@ class Trainer:
     device-resident data of one experiment."""
 
     def __init__(self, params, seed=0, device="cuda", verbose=True):
+        if compute_dtype(params.get("compute_dtype")) == torch.int8:
+            raise ValueError(
+                "--dtype int8 is a serving-only extension (predict / "
+                "bench, ops/quant.py); train with float32 or bfloat16")
         if params.model not in TRAINED_MODELS:
             raise ValueError(f"training --model {params.model} is not ported "
                              f"yet: {' | '.join(TRAINED_MODELS)}")

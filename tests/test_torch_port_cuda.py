@@ -3,7 +3,8 @@ versions, dark_pred, class_pred (CapsuleNet and ConvNet), the crop
 sampler and the two-stage pipeline on the card against the same calls
 on the CPU, one capsule train step on the card, and one darknet_r train
 step on the card against the same step on the CPU, with its dropout
-masks from a seeded generator.
+masks from a seeded generator; the NMS, the int8 products
+(``torch._int_mm``) and int8 serving on the card against the CPU.
 
 Every test here needs a CUDA card and skips without one.  This file
 imports nothing of JAX, so it also runs on a machine without it:
@@ -23,7 +24,7 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
     CapsuleNet, ConvNet, DarkNet)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
-    _build, crop, input_stage as ist, pool, routing)
+    _build, crop, decode, input_stage as ist, pool, quant, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.params import Params
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
     checkpoint as ckpt, steps)
@@ -445,12 +446,12 @@ def test_dark_class_pred_on_card_matches_cpu(card, tmp_path, classifier):
                               "state_dict": m.state_dict()}, False, d)
     for device_crop in (False, True):
         kw = dict(device_crop=device_crop, max_crops=4)
-        y_cpu, (idx, _, _) = predict.dark_class_pred(
+        y_cpu, (idx, _, _) = predict.dark_class_detect(
             frames, ddir, dparams, cdir, cparams, "last", device="cpu", **kw)
         for fn in (ist.input_stage, pool.maxpool2_leaky,
                    routing.routed_capsules):
             fn.launches = 0
-        y_card, (idx_card, _, _) = predict.dark_class_pred(
+        y_card, (idx_card, _, _) = predict.dark_class_detect(
             frames, ddir, dparams, cdir, cparams, "last", device="cuda",
             **kw)
         n_k3 = 0 if classifier == "cnn" else (
@@ -461,3 +462,70 @@ def test_dark_class_pred_on_card_matches_cpu(card, tmp_path, classifier):
         assert 0 < len(idx) < 32
         # dark_pred's card band (test_dark_pred_on_card_matches_cpu)
         np.testing.assert_allclose(y_card, y_cpu, rtol=1e-4, atol=5e-5)
+
+
+def test_nms_on_card_matches_cpu(card):
+    y = torch.rand((4, 14, 14, 48), generator=card, device="cuda")
+    y[..., 3:5] = 0.2 + 0.3 * y[..., 3:5]   # wide, overlapping boxes
+    kw = dict(n_classes=43, n_boxes=1, img_size=448)
+    got, want = (decode.decode_grid(t, **kw) for t in (y, y.cpu()))
+    keep = decode.nms_mask(got["xy"], got["conf"], got["valid"])
+    assert keep.device.type == "cuda"
+    assert torch.equal(keep.cpu(), decode.nms_mask(
+        want["xy"], want["conf"], want["valid"]))
+    assert 0 < keep.sum() < got["valid"].sum()
+
+
+@pytest.mark.parametrize("shape", [(5, 32, 64), (200, 288, 64),
+                                   (40, 9216, 1024)])
+def test_int8_matmul_on_card_is_exact(card, shape):
+    """torch._int_mm on the card (a short operand padded past 16 rows)
+    against the CPU's f64 product of the same int8 operands."""
+    m, k, n = shape
+    a = torch.randint(-127, 128, (m, k), generator=card, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=card, device="cuda",
+                      dtype=torch.int8)
+    got = quant.int8_matmul(a, w)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu().double(),
+                       a.cpu().double() @ w.cpu().double().t())
+
+
+def test_int8_dark_pred_on_card_matches_cpu(card, tmp_path):
+    """--dtype int8 serving at 64 px: no K1/K2 launch on the card, and
+    y_hat within 1e-5 of the CPU's on 99.9% of its elements and within
+    JAX's int8 bands everywhere (the calibration's f32 convs differ by
+    rounding, so a requantization may flip at a tie)."""
+    params = Params(model="darknet_r", n_classes=43, n_boxes=1, n_grid=2,
+                    darknet_input=64, batch_size=4, compute_dtype="int8")
+    ckpt.save_checkpoint({"epoch": 0, "optim_dict": {}, "state_dict":
+                          DarkNet(1, 43, seed=1).state_dict()}, False,
+                         str(tmp_path))
+    _, _, x, _ = loader.synthetic_dataset("darknet_r", params, 0, 8)
+    frames = list(np.clip(x * 128.0 + 128, 0, 255).astype(np.uint8))
+    ist.input_stage.launches = pool.maxpool2_leaky.launches = 0
+    y_card, _ = predict.dark_detect(frames, str(tmp_path), params, "last",
+                                    device="cuda")
+    assert (ist.input_stage.launches, pool.maxpool2_leaky.launches) == (0, 0)
+    y_cpu, _ = predict.dark_detect(frames, str(tmp_path), params, "last",
+                                   device="cpu")
+    err = np.abs(y_card - y_cpu)
+    assert (err <= 1e-5).mean() >= 0.999
+    assert err.mean() < 0.01 and err.max() < 0.12
+
+
+def test_int8_convnet_on_card_matches_cpu(card):
+    """The int8 ConvNet on the card against the CPU from the same
+    qparams: the products are exact and the f32 epilogues the same IEEE
+    operations, so the logits agree to the f32 head's rounding."""
+    x = torch.rand((40, 32, 32, 3), generator=card, device="cuda") * 2 - 1
+    qc = quant.quantize_convnet(ConvNet(43, seed=2).eval().state_dict(),
+                                x.cpu())
+    got = quant.convnet_int8_apply(
+        {k: ([{n: t.cuda() for n, t in L.items()} for L in v]
+             if isinstance(v, list) else {n: t.cuda() for n, t in v.items()}
+             if isinstance(v, dict) else v.cuda()) for k, v in qc.items()},
+        x)
+    want = quant.convnet_int8_apply(qc, x.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

@@ -231,7 +231,7 @@ def test_dark_pred_matches_jax(served):
                                     "last")
     conf = want[..., [0, 5]]
     assert np.abs(conf - 0.5).min() > 1e-3 and 0 < (conf > 0.5).mean() < 1
-    got, (idx, xy, cls) = predict.dark_pred(frames, pdir, Params(**DARK_D),
+    got, (idx, xy, cls) = predict.dark_detect(frames, pdir, Params(**DARK_D),
                                             "last", device="cpu")
     assert got.shape == want.shape == (N_FRAMES, 2, 2, 10)
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
@@ -253,7 +253,7 @@ def test_combine_cnn_gives_the_jax_nan_line(served):
     jp, p = JaxParams(**DARK_D), Params(**DARK_D)
     want, _ = jax_predict.dark_class_pred(frames, jdir, jp, jcls,
                                           JaxParams(**CNN), "last")
-    got, (idx, _, classes) = predict.dark_class_pred(
+    got, (idx, _, classes) = predict.dark_class_detect(
         frames, pdir, p, pcls, Params(**CNN), "last", device="cpu")
     assert got.shape == want.shape == (N_FRAMES, 2, 2, 53)
     np.testing.assert_allclose(got[..., :10], want[..., :10], atol=5e-5)

@@ -280,7 +280,7 @@ def test_dark_class_pred_matches_jax(pipeline, classifier, device_crop):
         frames, jdark, jdp, jcls, jcp, "last", device_crop=device_crop,
         max_crops=max_crops)
     _check_clear_of_ties(want[..., :48])
-    got, (image_indices, boxes_xy, classes) = predict.dark_class_pred(
+    got, (image_indices, boxes_xy, classes) = predict.dark_class_detect(
         frames, pdark, Params(**DARK), pcls, Params(**CLASS[classifier]),
         "last", device="cpu", device_crop=device_crop, max_crops=max_crops)
     assert got.dtype == np.float64 and got.shape == want.shape == (
@@ -314,7 +314,7 @@ def test_fused_bf16_tracks_f32(pipeline):
     frames, (_, pdark), classifiers = pipeline
     out = {}
     for dt in ("float32", "bfloat16"):
-        out[dt], dets = predict.dark_class_pred(
+        out[dt], dets = predict.dark_class_detect(
             frames, pdark, Params(**DARK, compute_dtype=dt),
             classifiers["capsule"][1],
             Params(**CLASS["capsule"], compute_dtype=dt), "last",
@@ -331,7 +331,7 @@ def test_zero_detections_launch_nothing(pipeline, tmp_path):
     variables = _detector(frames, head_scale=0.0)   # confidences 0.5
     _, pdark = _write(str(tmp_path), "darknet_r", variables)
     for device_crop in (False, True):
-        got, (idx, bx, classes) = predict.dark_class_pred(
+        got, (idx, bx, classes) = predict.dark_class_detect(
             frames, pdark, Params(**DARK), classifiers["cnn"][1],
             Params(**CLASS["cnn"]), "last", device="cpu",
             device_crop=device_crop)
@@ -381,10 +381,10 @@ def test_cli_combine_writes_metrics(pipeline, tmp_path, argv):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--model", "darknet_r", "--combine", "capsule", "--dtype", "int8"],
-     "not ported yet"),
-    (["--model", "darknet_d", "--combine", "capsule", "--dtype", "int8"],
-     "not ported yet"),
+    (["--model", "darknet_r", "--combine", "capsule", "--dtype", "fp8"],
+     "unknown compute dtype"),
+    (["--model", "darknet_d", "--combine", "cnn", "--dtype", "fp8"],
+     "unknown compute dtype"),
     (["--model", "darknet_r", "--combine", "darknet_r"], "capsule | cnn"),
 ])
 def test_cli_refuses_what_the_combine_path_lacks(argv, message):
