@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with a card and nvcc.  Phases
 (any failure ends the run with a non-zero exit; nothing is caught; each
-path of phases 5, 8, 11, 13, 15-17, 18-20 and 21-23 runs with all four
+path of phases 5, 8, 11, 13, 15-17, 18-20, 21-23 and 25-27 runs with all four
 kernels' launch counts set to 0 just before it, and is checked on all
 four just after):
 
@@ -169,9 +169,30 @@ four just after):
 24. a measurement: one darknet_r train step at 448 px, batch 32, on
    noise, f32 (cuDNN, TF32 off) against f64 on the card from the same
    weights; each conv weight gradient's largest error over its max|g|
-   and its cosine.
+   and its cosine;
+25. serving artifacts (export.py) of phase 5's detector, f32, bf16 and
+   int8, exported on the card with a symbolic batch, saved, loaded and
+   called at batch 32 and 5: the graph's cyt::* nodes, K2 once and K1
+   four times a call (none under int8), the confidences against
+   `dark_detect`'s y_hat (phase 5's bands), equality with the live fn,
+   the ms of a batch of artifact and live fn in turns;
+26. the CapsuleNet artifact at batch 64, f32 and bf16 (K3 once a call;
+   scores against `class_pred`, K3's bands), and the fused two-stage
+   artifacts with phase 8's CapsuleNet and a ConvNet at max_crops 16, f32,
+   bf16 and int8 (K2 x1, K1 x4 a batch but int8, K3 x1 with CapsuleNet;
+   class scores against the live fused path, K3's bands); ms in turns;
+27. --routing: CapsuleNet at batch 64, serving and one train step under
+   pallas (K3 x1, K4 x1) and xla (no launch), f32 and bf16: scores and
+   gradients in K3's and K4's bands of each other, both times; auto
+   must resolve to the faster;
+28. --remat: one darknet_r train step at 448 px, batch 32, dropout 0.5,
+   f32 and bf16, with and without remat (cuDNN deterministic): the loss
+   to the bit, the gradients' cosines at least 0.99999, BN buffers and
+   the generator state equal; peak memory and step ms of each; the s2d
+   int8 chain equal to the resident chain to the bit, both ms in turns.
 
-The kernels line's K1 and K2 launches count phases 5 and 18.  The line
+The kernels line's K1 and K2 launches count phases 5, 18 and 25, K3's
+phases 8 and 26, K4's phases 11 and 27.  The line
 before the last is the JSON ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -194,7 +215,7 @@ import torch.nn.functional as F
 
 # the port sits beside this script; alone, the script stops here
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import (
-    Params, __main__ as cli, losses, predict, viz)
+    Params, __main__ as cli, export, losses, predict, viz)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import loader
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
     resolve_device)
@@ -204,6 +225,8 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
     DARKNET_LAYERS, CapsuleNet, ConvNet, DarkCapsuleNet, DarkNet)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models.darkcapsule \
     import DARKCAPSULE_LAYERS
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models.registry \
+    import resolve_routing_impl
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
     _build, boxes as box_ops, capsule as caps, crop, decode,
     input_stage as ist, pool, quant, routing)
@@ -1962,7 +1985,9 @@ def run_two_stage_fused(frames, dark_dir, classifiers):
                 def fused(xb, classify=cls):
                     yb = ist.darknet_serving_apply(p, xb, n_boxes=1,
                                                    n_classes=43, dtype=dt)
-                    return predict.two_stage_tail(xb, yb, classify, **tail)
+                    return export._two_stage_tail(
+                        xb, yb, classify=classify, use_nms=False,
+                        with_grid=False, **tail)
 
                 # one detector batch on device-resident frames
                 x0 = torch.from_numpy(np.stack(frames[:BATCH])).cuda().float()
@@ -2418,6 +2443,345 @@ def run_wgrad_precision(y_np):
     return rows
 
 
+def artifact_path(root, name):
+    os.makedirs(root, exist_ok=True)
+    return os.path.join(root, name + ".pt2")
+
+
+def export_and_load(fn, shape, root, name):
+    """``fn`` exported with a symbolic batch on the card, saved and loaded
+    back; returns the loaded callable, the export's and the load's
+    seconds and the artifact's MB."""
+    t0 = time.perf_counter()
+    blob = export.export_serving(fn, shape, device="cuda")
+    path = export.save(blob, artifact_path(root, name))
+    t1 = time.perf_counter()
+    call = export.load_serving(path, device="cuda")
+    return call, t1 - t0, time.perf_counter() - t1, len(blob) / 1e6
+
+
+def kernel_nodes(call):
+    """The artifact graph's cyt::* nodes, counted by operator."""
+    nodes = export._kernel_nodes(call.exported)
+    return {n.split(".")[1]: nodes.count(n) for n in sorted(set(nodes))}
+
+
+def counted(fn, *args):
+    """``fn(*args)`` with every launch count set to 0 just before it;
+    returns its output and the counts read just after."""
+    reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, read_launches()
+
+
+def in_turns(a, b, iters=10):
+    """The CUDA-event ms per call of ``a`` and ``b``, timed in turns (a, b,
+    b, a) in this call; returns the two means."""
+    ta, tb = [], []
+    for first, second, to_first, to_second in ((a, b, ta, tb),
+                                              (b, a, tb, ta)):
+        to_first.append(time_ms(first, iters=iters))
+        to_second.append(time_ms(second, iters=iters))
+    return sum(ta) / 2, sum(tb) / 2
+
+
+def by_candidate(d, n_cand):
+    """A decode dict's per-slot confidences and corners put back at their
+    candidate index: (B, n_cand) and (B, n_cand, 4), NaN where no slot."""
+    b = d["conf"].shape[0]
+    conf = torch.full((b, n_cand), float("nan"), device=d["conf"].device)
+    xy = torch.full((b, n_cand, 4), float("nan"), device=d["conf"].device)
+    idx = d["idx"].long()
+    conf.scatter_(1, idx, d["conf"].float())
+    xy.scatter_(1, idx[..., None].expand(-1, -1, 4), d["xy"].float())
+    return conf, xy
+
+
+def run_detector_artifacts(frames, model_dir, params, root):
+    """Phase 25: darknet_r @448 (phase 5's detector) as f32, bf16 and int8
+    artifacts with a symbolic batch, loaded and called at batch 32 and 5:
+    the cyt::* nodes and the launches of each call (K2 x1, K1 x4 for
+    f32 / bf16; none for int8), the outputs against the live dark_detect
+    path (phase 5's bands), and the ms of a batch of artifact and live fn
+    in turns.  Returns the launches of the batch-32 call by dtype."""
+    model = predict.restore_darknet(params, model_dir, "last").cuda()
+    xs = {b: preprocess_images(list(frames[:b]), 448, "cuda")
+          for b in (BATCH, 5)}
+    det_kw = dict(n_boxes=1, n_classes=43, img_size=448, conf_th=0.5)
+    out = {}
+    for dtype in ("float32", "bfloat16", "int8"):
+        dt = getattr(torch, dtype)
+        with torch.inference_mode():
+            if dt == torch.int8:   # calibrated as dark_detect calibrates
+                fn = export.make_int8_detector_fn(quant.quantize_darknet(
+                    model.state_dict(), x_cal=xs[BATCH]), **det_kw)
+            else:
+                fn = export.make_detector_fn(model, dtype=dt, **det_kw)
+        call, t_exp, t_load, mb = export_and_load(
+            fn, (448, 448, 3), root, f"darknet_r_{dtype}")
+        nodes = kernel_nodes(call)
+        want_nodes = ({} if dt == torch.int8 else
+                      {"input_stage": 1, "pool_leaky": 4})
+        require(nodes == want_nodes, f"{dtype} artifact nodes {nodes}")
+        params.compute_dtype = dtype
+        y_hat, _ = predict.dark_detect(list(frames[:BATCH]), model_dir,
+                                       params, "last", device="cuda")
+        ref = box_conf(y_hat, 1).reshape(BATCH, -1)
+        for b, x in xs.items():
+            d, launches = counted(call, x)
+            want = ({"input_stage": 0, "pool_leaky": 0} if dt == torch.int8
+                    else {"input_stage": 1, "pool_leaky": 4})
+            require(launches == dict(want, routing=0, routing_bwd=0),
+                    f"{dtype} artifact at batch {b}: launches {launches}")
+            with torch.inference_mode():
+                live = fn(x)
+            same = all(torch.equal(d[k], live[k]) for k in live)
+            conf, _ = by_candidate(d, 14 * 14)
+            err = np.abs(conf.cpu().numpy() - ref[:b])
+            print(f"[artifact] darknet_r {dtype} batch {b}: nodes {nodes}, "
+                  f"launches {launches}; confidences vs dark_detect's y_hat "
+                  f"max_abs_err {err.max()} mean {err.mean()}; equal to the "
+                  f"live fn to the bit: {same}")
+            if dt == torch.bfloat16:
+                require(err.mean() < BF16_BANDS["confidence"],
+                        "bf16 artifact outside phase 5's band")
+            else:
+                require(err.max() <= 5e-4, f"{dtype} artifact outside 5e-4")
+            if b == BATCH:
+                out[dtype] = launches
+        with torch.inference_mode():
+            live_ms, art_ms = in_turns(lambda: fn(xs[BATCH]),
+                                       lambda: call(xs[BATCH]))
+        print(f"[time] darknet_r {dtype} forward+decode batch {BATCH}: "
+              f"artifact {art_ms:.3f} ms, live {live_ms:.3f} ms, in turns "
+              f"(export {t_exp:.2f} s, load {t_load:.2f} s, {mb:.1f} MB; "
+              f"{SMI})")
+    return out
+
+
+def run_classifier_artifacts(frames, crops, dark_dir, classifiers, root):
+    """Phase 26: CapsuleNet at batch 64 as f32 and bf16 artifacts (K3 x1
+    a call), the fused two-stage --combine capsule | cnn at max_crops 16
+    as f32, bf16 and int8 artifacts (K2 x1, K1 x4 a batch but int8; K3
+    x1 a batch with CapsuleNet), each against its live path (K3's bands
+    for the class scores); ms of artifact and live in turns.  Returns
+    the f32 capsule classifier call's launches."""
+    cparams = Params(os.path.join(HERE, "experiments", "capsule",
+                                  "params.json"), model="capsule")
+    x64 = torch.from_numpy(crops[:CAPS_BATCH]).cuda()
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        cparams.compute_dtype = dtype
+        model = predict.restore_capsule(cparams, classifiers["capsule"],
+                                        "last").cuda()
+        fn = export.make_classifier_fn(model)
+        call, t_exp, t_load, mb = export_and_load(
+            fn, (32, 32, 3), root, f"capsule_{dtype}")
+        require(kernel_nodes(call) == {"routing": 1}, "capsule nodes")
+        (scores, _), launches = counted(call, x64)
+        require(launches == {"routing": 1, "routing_bwd": 0,
+                             "pool_leaky": 0, "input_stage": 0},
+                f"capsule {dtype} artifact: launches {launches}")
+        y_hat, _ = predict.class_pred(crops[:CAPS_BATCH],
+                                      classifiers["capsule"], cparams,
+                                      "last", device="cuda")
+        err = np.abs(scores.cpu().numpy() - y_hat).max()
+        np.testing.assert_allclose(scores.cpu().numpy(), y_hat,
+                                   **K3_TOL[dt == torch.bfloat16])
+        with torch.inference_mode():
+            live_ms, art_ms = in_turns(lambda: fn(x64), lambda: call(x64))
+        print(f"[artifact] capsule {dtype} batch {CAPS_BATCH}: launches "
+              f"{launches}; scores vs class_pred max_abs_err {err}; "
+              f"artifact {art_ms:.3f} ms, live {live_ms:.3f} ms in turns "
+              f"(export {t_exp:.2f} s, load {t_load:.2f} s, {mb:.1f} MB; "
+              f"{SMI})")
+        if dtype == "float32":
+            out = launches
+
+    xb = preprocess_images(list(frames[:BATCH]), 448, "cuda")
+    for name, cdir in classifiers.items():
+        for dtype in ("float32", "bfloat16", "int8"):
+            dt = getattr(torch, dtype)
+            dparams, cp = two_stage_params(name, dtype)
+            det = predict.restore_darknet(dparams, dark_dir, "last").cuda()
+            cls = predict.restore_classifier(cp, cdir, "last").cuda()
+            with torch.inference_mode():
+                fn = export.make_serving_two_stage_fn(
+                    det, cls, dtype=dt, x_cal=xb, n_boxes=1, n_classes=43,
+                    img_size=448, cap_input=32, max_crops=MAX_CROPS,
+                    conf_th=0.5, with_grid=True)
+            call, t_exp, t_load, mb = export_and_load(
+                fn, (448, 448, 3), root, f"two_stage_{name}_{dtype}")
+            d, launches = counted(call, xb)
+            n_k3 = 1 if name == "capsule" else 0
+            want = (dict(two_stage_launches(BATCH, n_k3), input_stage=0,
+                         pool_leaky=0) if dt == torch.int8
+                    else two_stage_launches(BATCH, n_k3))
+            require(launches == want,
+                    f"two-stage {name} {dtype} artifact: launches {launches}")
+            with torch.inference_mode():
+                live = fn(xb)
+            require(torch.equal(d["valid"], live["valid"]), "crops differ")
+            err = (d["class_scores"] - live["class_scores"]).abs().max()
+            torch.testing.assert_close(d["class_scores"],
+                                       live["class_scores"],
+                                       **K3_TOL[dt == torch.bfloat16])
+            with torch.inference_mode():
+                live_ms, art_ms = in_turns(lambda: fn(xb), lambda: call(xb))
+            print(f"[artifact] two-stage {name} {dtype} batch {BATCH}, "
+                  f"max_crops {MAX_CROPS}: nodes {kernel_nodes(call)}, "
+                  f"launches {launches}, {int(d['valid'].sum())} crops "
+                  f"valid; class scores vs the live fused path max_abs_err "
+                  f"{err.item()}; artifact {art_ms:.3f} ms, live "
+                  f"{live_ms:.3f} ms in turns (export {t_exp:.2f} s, load "
+                  f"{t_load:.2f} s, {mb:.1f} MB; {SMI})")
+    return out
+
+
+def run_routing_choice(crops, labels):
+    """Phase 27: --routing on the capsule classifier at batch 64: serving
+    and one train step under pallas (K3 x1, K4 x1 counted) and xla (no
+    launch), scores and gradients in K3's and K4's bands of each other,
+    both times; `resolve_routing_impl("auto")` must pick the faster on
+    this card.  Returns the pallas step's launches."""
+    cfg = losses.LossConfig.from_params(Params(os.path.join(
+        HERE, "experiments", "capsule", "params.json"), model="capsule",
+        recon=True, recon_coef=5e-4))
+    x = torch.from_numpy(crops[:CAPS_BATCH]).cuda()
+    y = torch.from_numpy(labels[:CAPS_BATCH]).cuda()
+    state = seeded_capsulenet().state_dict()
+    out, times = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        runs = {}
+        for impl in ("pallas", "xla"):
+            model = CapsuleNet(43, dtype=dtype, routing_impl=impl).cuda()
+            model.load_state_dict(state)
+            with torch.inference_mode():
+                scores, serve_l = counted(model.eval(), x)
+            model.train()
+            model.zero_grad(set_to_none=True)
+            reset_launches()
+            loss = steps.loss_and_scores(model, x, y, cfg, "capsule")[0]
+            loss.backward()
+            torch.cuda.synchronize()
+            step_l = read_launches()
+            k = 1 if impl == "pallas" else 0
+            require(serve_l == {"routing": k, "routing_bwd": 0,
+                                "pool_leaky": 0, "input_stage": 0} and
+                    step_l == {"routing": k, "routing_bwd": k,
+                               "pool_leaky": 0, "input_stage": 0},
+                    f"--routing {impl}: launches {serve_l}, {step_l}")
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+            opt = steps.make_optimizer(model)
+            with torch.inference_mode():
+                serve_ms = time_ms(lambda: model.eval()(x), iters=10)
+            model.train()
+            step_ms = time_ms(lambda: steps.train_step(
+                model, opt, x, y, 1e-3, cfg, "capsule"), iters=10)
+            runs[impl] = (scores, loss.item(), grads, serve_ms, step_ms)
+            if impl == "pallas" and dtype == torch.float32:
+                out = step_l
+        (sp, lp, gp, msp, stp), (sx, lx, gx, msx, stx) = (runs["pallas"],
+                                                          runs["xla"])
+        # xla routes in f32 whatever the dtype; pallas's bf16 routes on
+        # bf16 operands: K3's bf16 band then covers the two
+        torch.testing.assert_close(sp, sx, **K3_TOL[bf16])
+        worst = max(grad_close(f"--routing {n}", gp[n], gx[n], bf16,
+                               scaled=True) for n in gp)
+        name = str(dtype)[6:]
+        print(f"[routing] capsule {name} batch {CAPS_BATCH}: pallas vs xla "
+              f"scores max_abs_err {(sp - sx).abs().max().item()}, loss "
+              f"{lp} vs {lx}, gradients max_abs_err {worst} (K3/K4 bands); "
+              f"serving pallas {msp:.3f} ms, xla {msx:.3f} ms; train step "
+              f"pallas {stp:.3f} ms, xla {stx:.3f} ms ({SMI})")
+        times[dtype] = (msp, msx, stp, stx)
+    auto = resolve_routing_impl("auto", "capsule", "cuda")
+    faster = all(t[0] < t[1] and t[2] < t[3] for t in times.values())
+    print(f"[routing] --routing auto on this card resolves to {auto}; "
+          f"pallas faster in serving and the step, f32 and bf16: {faster}")
+    require(auto == ("pallas" if faster else "xla"),
+            "--routing auto did not pick the faster routing on this card")
+    return out
+
+
+def run_remat_and_s2d(x_np, y_np, frames, model_dir, params):
+    """Phase 28: one darknet_r train step at 448 px, batch 32, dropout
+    0.5, f32 and bf16, with and without --remat (cuDNN deterministic for
+    the pair): the loss equal to the bit, each gradient's cosine with
+    the plain step's at least 0.99999 (phase 24's rule), BN buffers and
+    the generator's state equal; the peak memory and the step's ms of
+    each.  Then the s2d int8 chain against the resident chain on the
+    card, bit for bit, and both ms in turns."""
+    cfg = losses.LossConfig.from_params(dark_train_params("float32"))
+    y = torch.from_numpy(y_np[:BATCH]).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(x_np[:BATCH]).cuda().to(dtype)
+        runs = {}
+        for remat in (False, True):
+            model = DarkNet(1, 43, dropout=0.5, dtype=dtype, seed=0,
+                            remat=remat).cuda().train()
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loss = steps.loss_and_scores(model, x, y, cfg, "darknet_r",
+                                         gen)[0]
+            loss.backward()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            torch.backends.cudnn.deterministic = deterministic
+            runs[remat] = (loss.item(), {n: p.grad.clone() for n, p in
+                                         model.named_parameters()},
+                           {n: b.clone() for n, b in model.named_buffers()},
+                           gen.get_state(), peak)
+            opt = steps.make_optimizer(model)
+            ms = time_ms(lambda: steps.train_step(
+                model, opt, x, y, 1e-3, cfg, "darknet_r", gen), iters=5)
+            runs[remat] += (ms,)
+            del model, opt
+        a, b = runs[False], runs[True]
+        require(a[0] == b[0], f"remat {dtype}: loss {b[0]} vs {a[0]}")
+        cos = min(float((a[1][n].double() * b[1][n].double()).sum()
+                        / (a[1][n].double().norm() * b[1][n].double().norm()))
+                  for n in a[1])
+        err = max(float(((a[1][n] - b[1][n]).abs().max()
+                         / a[1][n].abs().max())) for n in a[1])
+        require(cos >= 0.99999, f"remat {dtype}: gradient cosine {cos}")
+        require(all(torch.equal(a[2][n], b[2][n]) for n in a[2]),
+                f"remat {dtype}: BN buffers differ")
+        require(torch.equal(a[3], b[3]), f"remat {dtype}: generator state")
+        print(f"[remat] darknet_r train step batch {BATCH} {str(dtype)[6:]}"
+              f", dropout 0.5 (cuDNN deterministic for the checked step): "
+              f"loss {a[0]} equal with remat; gradients' least cosine "
+              f"{cos}, largest error over max|g| {err}; BN buffers and "
+              f"generator state equal; peak memory of forward+backward "
+              f"above the inputs {a[4]:.3f} GiB plain, {b[4]:.3f} GiB remat"
+              f" ({b[4] / a[4]:.3f}); step with Adam {a[5]:.3f} ms plain, "
+              f"{b[5]:.3f} ms remat ({b[5] / a[5]:.3f}) ({SMI})")
+
+    model = predict.restore_darknet(params, model_dir, "last").cuda()
+    xb = preprocess_images(list(frames[:BATCH]), 448, "cuda")
+    with torch.inference_mode():
+        q = quant.quantize_darknet(model.state_dict(), x_cal=xb)
+        qs = quant.prepare_s2d_int8(q)
+        kw = dict(n_boxes=1, n_classes=43)
+        y8 = quant.darknet_int8_resident_apply(q, xb, **kw)
+        ys = quant.darknet_int8_resident_s2d_apply(qs, xb, **kw)
+        require(torch.equal(y8, ys), "s2d int8 chain differs from resident")
+        res_ms, s2d_ms = in_turns(
+            lambda: quant.darknet_int8_resident_apply(q, xb, **kw),
+            lambda: quant.darknet_int8_resident_s2d_apply(qs, xb, **kw))
+    print(f"[s2d] darknet_r int8 forward batch {BATCH}: the s2d chain equal "
+          f"to the resident chain to the bit; resident {res_ms:.3f} ms, s2d "
+          f"{s2d_ms:.3f} ms, in turns (phase 22 times the resident chain "
+          f"with its decode; {SMI})")
+
+
 def main():
     global SMI
     # phase 1
@@ -2568,11 +2932,25 @@ def main():
     # phase 24
     run_wgrad_precision(dy)
 
+    # phases 25-28: the serving artifacts, --routing, --remat and s2d
+    art_root = os.path.join(HERE, "build", "chip_smoke", "artifacts")
+    art_launches = run_detector_artifacts(frames, model_dir, params,
+                                          art_root)
+    caps_art = run_classifier_artifacts(frames, crops, model_dir,
+                                        classifiers, art_root)
+    shutil.rmtree(art_root)
+    routing_launches = run_routing_choice(tcrops, tlabels)
+    run_remat_and_s2d(dx, dy, frames, model_dir, params)
+
     # K1 and K2 on the main paths: darknet_r's (phase 5) and darknet_d's
-    # (phase 18) serving
+    # (phase 18) serving, and the detector artifacts' (phase 25); K3 on
+    # the capsule slice (phase 8) and its artifact (phase 26); K4 on the
+    # training slice (phase 11) and the --routing pallas step (phase 27)
     for dtype, runs in slice_launches.items():
         for k in ("pool_leaky", "input_stage"):
-            runs[k] += d_launches[dtype][k]
+            runs[k] += d_launches[dtype][k] + art_launches[dtype][k]
+    caps_launches["routing"] += caps_art["routing"]
+    train_launches["routing_bwd"] += routing_launches["routing_bwd"]
 
     pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu_torch"
     jax_pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu"

@@ -17,7 +17,8 @@ two-stage darknet_r|darknet_d --combine capsule|cnn.
         [--dtype float32|bfloat16] [--seed N] [--lr LR] [--dropout P] \\
         [--fine_tune N] [--npy] [--recon] [--recon_coef C] \\
         [--eval_every N] [--train_frac F] [--no_metric] \\
-        [--restore last|best] [--device cuda|cpu] [--model_dir DIR]
+        [--restore last|best] [--device cuda|cpu] [--model_dir DIR] \\
+        [--routing auto|xla|pallas] [--remat]
 
 Reads ``<model_dir>/params.json``.  predict reads
 ``<model_dir>/<restore>.ckpt`` (the reference's torch format; else the
@@ -56,7 +57,11 @@ fine-tuning on (the darknet19 npz ``params.pretrained_weights``, default
 is ``fine_tune`` in params.json (18 for darknet_r and darknet_d).
 ``--dropout P`` (P >= 0) overrides the json's dropout.  ``--device``
 alone picks the device (darkcapsule's params.json ``device`` key is not
-read).  Training refuses ``--dtype int8`` (serving only), and any other
+read).  ``--routing`` picks the capsule models' routing (pallas: the K3/K4
+kernels; xla: the plain composition; auto: pallas for capsule on the
+card, xla for darkcapsule and on the CPU), in predict and training;
+``--remat`` rematerializes the detectors' conv blocks in training.
+Training refuses ``--dtype int8`` (serving only), and any other
 mode exits with a "not ported yet" message.
 """
 
@@ -75,6 +80,7 @@ from .metrics.classification import recog_acc, recog_auc, recog_pr
 from .device import compute_dtype, resolve_device
 from .metrics.detection import (detect_AP, detect_acc, detect_and_recog_acc,
                                 detect_and_recog_mAP)
+from .models.registry import ROUTING_IMPLS
 from .params import Params
 from .predict import CLASSIFIERS, class_pred, dark_class_pred, dark_pred
 from .train.driver import train_and_evaluate
@@ -124,6 +130,15 @@ parser.add_argument("--device_crop", default=False, action="store_true",
 parser.add_argument("--max_crops", default=16, type=int,
                     help="--device_crop only: boxes classified per frame, "
                     "the top by confidence")
+parser.add_argument("--routing", default="auto",
+                    help="capsule routing: auto | xla | pallas (pallas = the "
+                    "K3/K4 kernels; auto = pallas for capsule on the card, "
+                    "xla for darkcapsule and on the CPU)")
+parser.add_argument("--remat", default=False, action="store_true",
+                    help="rematerialize the detectors' conv blocks in the "
+                    "backward (torch.utils.checkpoint): less activation "
+                    "memory for one more forward of each block; the same "
+                    "loss, gradients, BN buffers and dropout masks")
 parser.add_argument("--nms", default=False, action="store_true",
                     help="greedy NMS over the detector's boxes in predict "
                     "(the reference has none)")
@@ -177,6 +192,9 @@ def main(argv=None):
         compute_dtype(args.dtype)
     except ValueError as e:
         sys.exit(f"--dtype {args.dtype}: {e}")
+    if args.routing not in ROUTING_IMPLS:
+        sys.exit(f"--routing {args.routing}: choose from "
+                 + " | ".join(ROUTING_IMPLS))
     combine = args.mode == "predict" and args.model in DETECTORS \
         and args.combine is not None
     if combine and args.combine not in CLASSIFIERS:
@@ -254,6 +272,8 @@ def load_params(model_dir, args, model):
     params.train_frac = args.train_frac
     params.npy = args.npy
     params.summary = bool(args.summary)
+    params.routing_impl = args.routing
+    params.remat = args.remat
     if args.dropout >= 0:
         params.dropout = args.dropout
     return params

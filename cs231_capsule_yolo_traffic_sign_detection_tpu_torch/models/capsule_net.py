@@ -20,7 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.capsule import capsule_norm, routed_single_capsule, squash
+from ..ops.capsule import (capsule_norm, compute_priors, dynamic_routing,
+                           routed_single_capsule, squash)
 from ..ops.routing import routed_capsules
 from .init import init_capsulenet
 from .layers import ReconDecoder
@@ -49,14 +50,21 @@ class PrimaryCapsules(nn.Module):
 
 class CapsuleRouting(nn.Module):
     """Capsules -> capsules by dynamic routing: (B, N, in_c) ->
-    (B, n_caps, out_c).  A CUDA tensor takes the fused kernels K3 and,
-    in training, K4 (ops/routing.py), a CPU tensor their plain versions;
-    one output capsule takes the closed form.  The route weights start
-    at zero: CapsuleNet draws them from its seed (models/init.py)."""
+    (B, n_caps, out_c).  ``impl`` is the resolved ``--routing``
+    (models/registry.py): "pallas" takes the fused kernels K3 and, in
+    training, K4 (ops/routing.py) on a CUDA tensor and their plain
+    versions on a CPU tensor; "xla" the plain composition of
+    ops/capsule.py (votes, then `dynamic_routing`) in f32 on any device,
+    differentiated by autograd.  One output capsule takes the closed
+    form whatever ``impl``.  The route weights start at zero:
+    CapsuleNet draws them from its seed (models/init.py)."""
 
-    def __init__(self, n_caps, n_nodes, in_c, out_c, n_iter=3):
+    def __init__(self, n_caps, n_nodes, in_c, out_c, n_iter=3,
+                 impl="pallas"):
         super().__init__()
-        self.n_iter = n_iter
+        if impl not in ("pallas", "xla"):
+            raise ValueError(f"routing impl {impl!r}: pallas | xla")
+        self.n_iter, self.impl = n_iter, impl
         self.route_weights = nn.Parameter(
             torch.zeros(1, n_nodes, n_caps, in_c, out_c))
         self._bf16_key, self._bf16_w = None, None
@@ -65,6 +73,9 @@ class CapsuleRouting(nn.Module):
         w = self.route_weights[0]
         if w.shape[1] == 1:
             return routed_single_capsule(x, w)
+        if self.impl == "xla":  # f32 whatever bf16, as the JAX module
+            return dynamic_routing(compute_priors(x, w),
+                                   n_iter=self.n_iter)[:, 0]
         return routed_capsules(x, self._routed_weights(w, bf16), self.n_iter,
                                bf16=bf16)
 
@@ -72,9 +83,13 @@ class CapsuleRouting(nn.Module):
         """The route weights as K3 reads them.  bf16 serving (no gradient)
         reuses one bf16 copy, made again when the parameter changes (in
         place, or moved); with a gradient `RoutedCapsules` casts inside
-        the op, so the gradient reaches the f32 weights."""
+        the op, so the gradient reaches the f32 weights.  Under
+        torch.export the cast is part of the traced program (a traced
+        parameter has no storage to key a copy on)."""
         if not bf16 or (torch.is_grad_enabled() and w.requires_grad):
             return w
+        if torch.compiler.is_exporting():
+            return w.to(torch.bfloat16)
         p = self.route_weights
         key = (p.data_ptr(), p._version, p.device)
         if key != self._bf16_key:
@@ -88,15 +103,18 @@ class CapsuleNet(nn.Module):
     """``dtype`` is the compute dtype of the convs and the decoder:
     bfloat16 runs them in bf16 and K3/K4 in their bf16 mode; squash and
     routing state stay f32, and the parameters stay f32 (the master
-    copy) whatever the dtype."""
+    copy) whatever the dtype.  ``routing_impl`` ("pallas" | "xla", the
+    resolved ``--routing``) picks the routing (`CapsuleRouting`)."""
 
-    def __init__(self, n_classes=43, dtype=torch.float32, seed=0):
+    def __init__(self, n_classes=43, dtype=torch.float32, seed=0,
+                 routing_impl="pallas"):
         super().__init__()
         self.dtype = dtype
         self.conv1 = nn.Conv2d(3, 256, 9)
         self.primary_capsules = PrimaryCapsules()
         self.traffic_sign_capsules = CapsuleRouting(
-            n_caps=n_classes, n_nodes=16 * 9 * 9, in_c=8, out_c=16)
+            n_caps=n_classes, n_nodes=16 * 9 * 9, in_c=8, out_c=16,
+            impl=routing_impl)
         self.decoder = ReconDecoder()
         init_capsulenet(self, seed)
 

@@ -16,7 +16,10 @@ JAX module.  The state_dict is the reference's: ``conv.conv_i.*`` and
 ``conv.bn_i.*`` (i = 1..5), ``traffic_sign_capsules.route_weights``
 (1, 512, 1, 8, 5) and the decoder the reference registers and never
 calls, ``decoder.{0,4,7,10,12}.*``.  Initial weights come from
-``seed`` alone (models/init.py).  The reference's unregistered variants
+``seed`` alone (models/init.py).  ``routing_impl`` is the resolved
+``--routing`` (the one capsule takes the closed form whatever it is);
+``remat`` rematerializes each block in the backward
+(`layers.remat_block`).  The reference's unregistered variants
 DarkCapsuleNet2 and DarkCapsuleNet3 are not ported.
 """
 
@@ -25,7 +28,7 @@ import torch.nn as nn
 
 from .capsule_net import CapsuleRouting
 from .init import init_darkcapsule
-from .layers import ConvBNLeaky, ReconDecoder
+from .layers import ConvBNLeaky, ReconDecoder, remat_block
 
 # (out_channels, kernel, stride); padding 1 (reference models.py:346-365)
 DARKCAPSULE_LAYERS = [(128, 3, 1), (256, 3, 1), (64, 4, 2), (128, 4, 2),
@@ -56,10 +59,11 @@ class DarkCapsuleNet(nn.Module):
     ConvBNLeaky objects that run them sit in a plain list, as in
     DarkNet."""
 
-    def __init__(self, n_grid=7, dtype=torch.float32, seed=0):
+    def __init__(self, n_grid=7, dtype=torch.float32, seed=0,
+                 routing_impl="xla", remat=False):
         super().__init__()
         self.n_grid = n_grid
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.conv = nn.Module()
         blocks, in_ch = [], 3
         for i, (feats, k, s) in enumerate(DARKCAPSULE_LAYERS, start=1):
@@ -71,7 +75,7 @@ class DarkCapsuleNet(nn.Module):
             in_ch = feats
         self._blocks = blocks  # plain list: not registered twice
         self.traffic_sign_capsules = CapsuleRouting(
-            n_caps=1, n_nodes=512, in_c=8, out_c=5)
+            n_caps=1, n_nodes=512, in_c=8, out_c=5, impl=routing_impl)
         self.decoder = ReconDecoder()
         init_darkcapsule(self, seed)
 
@@ -85,8 +89,10 @@ class DarkCapsuleNet(nn.Module):
         for a float64 model)."""
         b, g = x.shape[0], self.n_grid
         x = x.permute(0, 3, 1, 2).to(self.dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self._blocks:
-            x = blk(x, self.dtype)
+            x = (remat_block(blk, x, self.dtype) if remat
+                 else blk(x, self.dtype))
         w = self.traffic_sign_capsules.route_weights
         caps = self.traffic_sign_capsules(grid_capsules(x, g).to(w.dtype))
         return caps.reshape(g, g, b, 5).permute(2, 0, 1, 3)

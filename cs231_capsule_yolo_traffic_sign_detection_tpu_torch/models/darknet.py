@@ -11,7 +11,9 @@ convs run in it on the f32 parameters cast to it, BN keeps f32
 statistics and parameters, and the head's output goes to f32 before the
 sigmoid and softmax.  In training, dropout follows the "drop" blocks
 with masks drawn from the ``generator`` the caller passes (the trainer
-owns one, seeded from ``--seed``), never from the global RNG.  Initial
+owns one, seeded from ``--seed``), never from the global RNG.  With
+``remat`` (``--remat``) each block is rematerialized in the backward
+(`layers.remat_block`).  Initial
 weights come from ``seed`` alone (models/init.py).
 
 `load_darknet19_npz` and `freeze_darknet` are the pretrained-weight
@@ -24,7 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .init import init_darknet
-from .layers import ConvBNLeaky
+from .layers import ConvBNLeaky, remat_block
 
 # (out_channels, kernel_size, what follows: 'mp' max-pool | 'drop' | None)
 DARKNET_LAYERS = [
@@ -70,10 +72,10 @@ class DarkNet(nn.Module):
     """
 
     def __init__(self, n_boxes=2, n_classes=0, dropout=0.0,
-                 dtype=torch.float32, seed=0):
+                 dtype=torch.float32, seed=0, remat=False):
         super().__init__()
         self.n_boxes, self.n_classes = n_boxes, n_classes
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.model = nn.Module()
         blocks = []
         in_ch = 3
@@ -102,8 +104,10 @@ class DarkNet(nn.Module):
         training."""
         dt = self.dtype
         x = x.permute(0, 3, 1, 2).to(dt)  # NHWC -> channels_last NCHW view
+        remat = self.remat and torch.is_grad_enabled()
         for blk, after in self._blocks:
-            x = blk(x, dt, generator)
+            x = (remat_block(blk, x, dt, generator) if remat
+                 else blk(x, dt, generator))
             if after == "mp":
                 x = F.max_pool2d(x, 2, 2)
         out = F.conv2d(x, self.model.conv_19.weight.to(dt))

@@ -6,12 +6,15 @@ reconstruction decoder."""
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
-def batch_norm(x, bn, training):
+def batch_norm(x, bn, training, update=True):
     """``bn`` (an ``nn.BatchNorm2d``) over NCHW x as flax's BatchNorm runs
     it: the statistics, scale, bias and running buffers in f32 whatever
-    x's dtype, the output in x's dtype.
+    x's dtype, the output in x's dtype.  ``update=False`` normalizes by
+    the batch's statistics in training and leaves the running buffers
+    and the batch count as they are (a rematerialized block's recompute).
 
     In training the running variance takes the BIASED batch variance, as
     flax stores it (``nn.BatchNorm2d`` stores the unbiased one).
@@ -28,6 +31,8 @@ def batch_norm(x, bn, training):
         m = 1.0 / (float(bn.num_batches_tracked) + 1.0)
     mean, var = bn.running_mean.clone(), bn.running_var.clone()
     y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, m, bn.eps)
+    if not update:
+        return y
     with torch.no_grad():
         n = x.numel() // x.shape[1]
         bn.running_mean.copy_(mean)
@@ -74,27 +79,52 @@ class ConvBNLeaky(nn.Module):
         self.add_module("bn" + self.suffix, nn.BatchNorm2d(
             features, eps=1e-5, momentum=bn_momentum))
 
-    def forward(self, x, dtype=torch.float32, generator=None):
+    def forward(self, x, dtype=torch.float32, generator=None, memo=None):
         """The conv in ``dtype`` on the f32 weight (and bias) cast to it,
         BN (f32 statistics, output in ``dtype``), leaky and dropout in
         ``dtype``.  Dropout, in training only, draws from
-        ``generator``."""
+        ``generator``.  ``memo`` (a dict, `remat_block`'s) marks a
+        second run of the same call: the first records the generator's
+        state before the dropout draw, the second updates no BN buffer
+        and draws the same mask from a copy of that state, so the
+        trainer's generator moves once."""
         conv = getattr(self, "conv" + self.suffix)
         bn = getattr(self, "bn" + self.suffix)
         # the mode is the children's: the model registers them, not the block
         training = bn.training
+        rerun = memo is not None and "ran" in memo
         bias = None if conv.bias is None else conv.bias.to(dtype)
         x = F.conv2d(x.to(dtype), conv.weight.to(dtype), bias,
                      stride=conv.stride, padding=conv.padding)
-        x = batch_norm(x, bn, training)
+        x = batch_norm(x, bn, training, update=not rerun)
         x = F.leaky_relu(x, 0.1)
         if training and self.dropout > 0:
             if generator is None:
                 raise ValueError("ConvBNLeaky: training with dropout draws "
                                  "its masks from a torch.Generator; none "
                                  "was given")
+            if rerun:
+                generator = torch.Generator(device=generator.device)
+                generator.set_state(memo["rng"])
+            elif memo is not None:
+                memo["rng"] = generator.get_state()
             x = dropout(x, self.dropout, generator)
+        if memo is not None:
+            memo["ran"] = True
         return x
+
+
+def remat_block(block, x, dtype=torch.float32, generator=None):
+    """``block(x, dtype, generator)`` (a `ConvBNLeaky`) rematerialized
+    (``--remat``, JAX COMPAT #26): under `torch.utils.checkpoint` its
+    activations are not kept for the backward, which runs the block
+    again.  As flax's lifted ``nn.remat``, the second run replays the
+    first's dropout mask and leaves the BN buffers as the first set
+    them (the block's ``memo``), so the loss, the gradients, the
+    buffers and the generator's state are those of the plain block."""
+    memo = {}
+    return checkpoint(lambda t: block(t, dtype, generator, memo), x,
+                      use_reentrant=False, preserve_rng_state=False)
 
 
 class ReconDecoder(nn.Sequential):

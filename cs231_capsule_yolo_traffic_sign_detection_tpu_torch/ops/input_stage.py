@@ -10,8 +10,9 @@ side as the JAX package does: a space-to-depth image convolved with the
 phase-stacked kernel of `phase_kernel`, then a max over the four pool
 phases.  The CUDA kernel (csrc/input_stage.cu) computes the left-hand
 side directly, from the folded conv1 ``w (3,3,3,32)``/``b (32,)``,
-without the phase kernel's zero taps.  `input_stage` launches the
-kernel for a CUDA tensor and takes the plain version only for a CPU
+without the phase kernel's zero taps.  The two are the implementations
+of one operator, ``torch.ops.cyt.input_stage`` (`input_stage` calls
+it): the kernel for a CUDA tensor, the plain version only for a CPU
 tensor.
 
 `darknet_serving_apply` is the serving forward: K2 for block 1, cuDNN
@@ -87,17 +88,40 @@ def input_stage(x, w, b, negative_slope=0.1):
     kernel [3, 3, 3, n_out] (HWIO) and b: [n_out], both f32 (the kernel
     accumulates in f32; round w through bf16 first to serve bf16
     operands); the CUDA kernel takes n_out = 32.  Returns
-    [B, H, W, n_out] in x.dtype.  On bf16 the CUDA kernel runs on the
-    tensor cores and rounds once, to the output; the plain bf16 version
-    also rounds the conv before the bias.  The count of kernel launches
-    is ``input_stage.launches``.
+    [B, H, W, n_out] in x.dtype, NHWC-contiguous.  On bf16 the CUDA
+    kernel runs on the tensor cores and rounds once, to the output; the
+    plain bf16 version also rounds the conv before the bias.  Calls the
+    operator ``torch.ops.cyt.input_stage``, which a traced program
+    (export.py) keeps as one node.  The count of kernel launches is
+    ``input_stage.launches``.
     """
-    n_out = w.shape[-1]
-    if x.device.type == "cpu":
-        wp, bp = phase_kernel(w, b)
-        return input_stage_apply(x, wp, bp, n_out, negative_slope)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"input_stage: unsupported device {x.device}")
+    return torch.ops.cyt.input_stage(x, w, b, float(negative_slope))
+
+
+input_stage.launches = 0
+
+
+@torch.library.custom_op("cyt::input_stage", mutates_args=(),
+                         device_types="cpu")
+def input_stage_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   negative_slope: float) -> torch.Tensor:
+    """The operator's CPU implementation: the plain version."""
+    wp, bp = phase_kernel(w, b)
+    return input_stage_apply(x, wp, bp, w.shape[-1],
+                             negative_slope).contiguous()
+
+
+@input_stage_op.register_fake
+def _(x, w, b, negative_slope):
+    bsz, h2, w2, _ = x.shape
+    return x.new_empty((bsz, h2 // 2, w2 // 2, w.shape[-1]))
+
+
+@input_stage_op.register_kernel("cuda")
+def _(x, w, b, negative_slope):
+    """The CUDA implementation: launches csrc/input_stage.cu, counted."""
     if (x.dim() != 4 or x.shape[3] != 3 or x.shape[1] % 2
             or x.shape[2] % 2):
         raise ValueError(f"input_stage: need [B, 2H, 2W, 3], got "
@@ -114,7 +138,7 @@ def input_stage(x, w, b, negative_slope=0.1):
     if w.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError("input_stage: w and b must be f32")
     bsz, h2, w2, _ = x.shape
-    out = torch.empty((bsz, h2 // 2, w2 // 2, n_out), dtype=x.dtype,
+    out = torch.empty((bsz, h2 // 2, w2 // 2, 32), dtype=x.dtype,
                       device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
@@ -126,9 +150,6 @@ def input_stage(x, w, b, negative_slope=0.1):
     _build.check(err, "input_stage")
     input_stage.launches += 1
     return out
-
-
-input_stage.launches = 0
 
 
 def prepare_serving(state_dict, dtype=torch.float32):

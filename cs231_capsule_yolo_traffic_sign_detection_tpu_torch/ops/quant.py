@@ -1,6 +1,5 @@
 """BN folding and int8 serving for the DarkNet detector and the ConvNet
-classifier (counterpart of the JAX ops/quant.py; its space-to-depth
-variant, used only by the JAX bench, is not ported).
+classifier (counterpart of the JAX ops/quant.py).
 
 1. **BN folding** (`fold_darknet`, `fold_convnet`): an inference
    BatchNorm is an affine map, so each conv + BN pair folds into one
@@ -14,7 +13,11 @@ variant, used only by the JAX bench, is not ported).
    resident chain requantizes each layer's output for the next
    (`_requant`) and pools in int8 (`_max_pool_int8`): requantization
    is monotone, so it commutes with the max, and the chain equals the
-   static `darknet_int8_apply` bit for bit.
+   static `darknet_int8_apply` bit for bit.  The space-to-depth variant
+   (`prepare_s2d_int8`, `darknet_int8_resident_s2d_apply`; the JAX
+   bench's) runs layer 1 and its pool as one int8 product on the s2d
+   image and a channel-group max, equal to the resident chain bit for
+   bit.
 3. **int8 ConvNet** (`quantize_convnet`, `convnet_int8_apply`): both
    convs and the 32768 x 128 dense in int8, LeakyReLU 0.01, ReLU and
    the n_classes head in f32, for the fused two-stage path.
@@ -203,19 +206,13 @@ def _head_f32(x, head_w, n_boxes, n_classes):
     return _head(torch.matmul(x, head_w[0, 0]), n_boxes, n_classes)
 
 
-def darknet_int8_resident_apply(qparams, x, *, n_boxes, n_classes):
-    """int8-resident forward: the inter-layer activations stay int8.
-
-    Needs static ``act_scales``.  Each layer's f32 epilogue is
-    requantized at the NEXT layer's scale and pooled in int8; the last
-    quantized layer stays f32 for the head.  x: NHWC, as the detector
-    sees it (0-255).  Bit-identical to `darknet_int8_apply` with the
-    same static scales."""
+def _resident_tail(qparams, z, start, *, n_boxes, n_classes):
+    """Layers ``start``..17 of the int8-resident chain and the f32 head;
+    ``z`` is layer ``start``'s int8 input, at act_scales[start]."""
     act = qparams["act_scales"]
     n = len(DARKNET_LAYERS)
-    z = _requant(x.float(), act[0])
-    for i, ((_, k, after), L) in enumerate(zip(DARKNET_LAYERS,
-                                               qparams["layers"])):
+    for i in range(start, n):
+        (_, k, after), L = DARKNET_LAYERS[i], qparams["layers"][i]
         a = _epilogue(_int8_conv(z, L["wq"], k), act[i], L["ws"], L["b"],
                       0.1)
         if i + 1 < n:
@@ -226,6 +223,60 @@ def darknet_int8_resident_apply(qparams, x, *, n_boxes, n_classes):
         else:
             x = _max_pool(a) if after == "mp" else a
     return _head_f32(x, qparams["head"], n_boxes, n_classes)
+
+
+def darknet_int8_resident_apply(qparams, x, *, n_boxes, n_classes):
+    """int8-resident forward: the inter-layer activations stay int8.
+
+    Needs static ``act_scales``.  Each layer's f32 epilogue is
+    requantized at the NEXT layer's scale and pooled in int8; the last
+    quantized layer stays f32 for the head.  x: NHWC, as the detector
+    sees it (0-255).  Bit-identical to `darknet_int8_apply` with the
+    same static scales."""
+    z = _requant(x.float(), qparams["act_scales"][0])
+    return _resident_tail(qparams, z, 0, n_boxes=n_boxes,
+                          n_classes=n_classes)
+
+
+def prepare_s2d_int8(qparams):
+    """Phase-stack layer 1's int8 kernel for the space-to-depth input
+    stage (JAX ops/quant.py:prepare_s2d_int8): `input_stage.phase_kernel`
+    only places kernel entries, so it is exact on int8, and the four
+    phases of an output channel share its weight scale and bias.
+    Returns qparams with "s2d": {"wq" int8 (3, 3, 12, 128), "ws", "b"
+    (128,)}."""
+    from .input_stage import phase_kernel
+
+    L0 = qparams["layers"][0]
+    wp, _ = phase_kernel(L0["wq"], L0["b"].new_zeros(1))
+    return dict(qparams, s2d={"wq": wp, "ws": L0["ws"].repeat(4),
+                              "b": L0["b"].repeat(4)})
+
+
+def darknet_int8_resident_s2d_apply(qparams, x, *, n_boxes, n_classes):
+    """The int8-resident chain with the space-to-depth input stage (JAX
+    ops/quant.py:darknet_int8_resident_s2d_apply): layer 1 and its pool
+    as one depth-108 int8 product on space_to_depth(x) (conv1's four
+    pool phases as output channel groups), the epilogue, the
+    requantization, then an int8 max over the four groups:
+
+        maxpool2(requant(leaky(conv1))) = groupmax_4(requant(leaky(conv_s2d)))
+
+    Bit-identical to `darknet_int8_resident_apply`: each phase's s32
+    accumulator is conv1's at its pooled position, the epilogue applies
+    the same scale and bias to every phase, and requantization is
+    monotone.  ``qparams`` from `prepare_s2d_int8`."""
+    from .input_stage import space_to_depth
+
+    act, s2d = qparams["act_scales"], qparams["s2d"]
+    zs = space_to_depth(_requant(x.float(), act[0]))
+    a = _epilogue(_int8_conv(zs, s2d["wq"], 3), act[0], s2d["ws"], s2d["b"],
+                  0.1)
+    z = _requant(a, act[1])
+    b, h, w, c4 = z.shape
+    z = z.reshape(b, h, w, 4, c4 // 4).amax(dim=3)
+    return _resident_tail(qparams, z, 1, n_boxes=n_boxes,
+                          n_classes=n_classes)
 
 
 def darknet_int8_apply(qparams, x, *, n_boxes, n_classes):

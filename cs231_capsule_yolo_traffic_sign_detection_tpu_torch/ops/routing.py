@@ -8,9 +8,10 @@ two directions.  `routed_capsules` is one differentiable op: a call
 that needs no gradient (serving, under ``torch.inference_mode()`` or
 ``torch.no_grad()``) runs the forward alone and saves nothing; a call
 that does goes through `RoutedCapsules`, whose forward keeps the
-per-iteration node sums s_t and whose backward is K4.  Each wrapper
-launches its kernel for a CUDA tensor and takes the plain version only
-for a CPU tensor.
+per-iteration node sums s_t and whose backward is K4.  Each direction
+is one operator, ``torch.ops.cyt.routing`` and ``torch.ops.cyt.routing_bwd``,
+whose implementations are the kernel for a CUDA tensor and the plain
+version only for a CPU tensor.
 
 bf16 mode follows the JAX kernels': x and W are stored in bf16, the
 votes and every sum accumulate in f32, softmax, logits, squash and all
@@ -162,34 +163,61 @@ def _k3(x, w, n_iter, bf16, s_saved=None):
     return out
 
 
+def _out_dtype(x):
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+@torch.library.custom_op("cyt::routing", mutates_args=(), device_types="cpu")
+def routing_op(x: torch.Tensor, w: torch.Tensor, n_iter: int, bf16: bool,
+               save_states: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 as an operator: (caps (B, K, D), the node sums s_t (n_iter, B,
+    K, D) with ``save_states``, else an empty tensor).  This CPU
+    implementation is the plain version."""
+    if save_states:
+        return routing_states_plain(x, w, n_iter, bf16)
+    caps = routed_capsules_plain(x, w, n_iter, bf16)
+    return caps, caps.new_empty((0,))
+
+
+@routing_op.register_fake
+def _(x, w, n_iter, bf16, save_states):
+    dt = _out_dtype(x)
+    shape = (x.shape[0], w.shape[1], w.shape[3])
+    return (x.new_empty(shape, dtype=dt),
+            x.new_empty((n_iter,) + shape if save_states else (0,),
+                        dtype=dt))
+
+
+@routing_op.register_kernel("cuda")
+def _(x, w, n_iter, bf16, save_states):
+    """The CUDA implementation: one launch of csrc/routing.cu, counted."""
+    _check("routed_capsules", x, w, n_iter)
+    io = torch.bfloat16 if bf16 else torch.float32
+    shape = (x.shape[0], w.shape[1], w.shape[3])
+    s_saved = torch.empty((n_iter,) + shape if save_states else (0,),
+                          dtype=torch.float32, device=x.device)
+    out = _k3(x.to(io), w.to(io), n_iter, bf16,
+              s_saved if save_states else None)
+    return out, s_saved
+
+
 class RoutedCapsules(torch.autograd.Function):
     """K3 forward (saving the node sums s_t, 528 KB at B=64) and K4
     backward as one differentiable op; plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, x, w, n_iter, bf16):
-        if x.device.type == "cpu":
-            out, s_saved = routing_states_plain(x, w, n_iter, bf16)
-            xs, ws = x, w
-        else:
-            _check("routed_capsules", x, w, n_iter)
-            io = torch.bfloat16 if bf16 else torch.float32
-            xs, ws = x.to(io), w.to(io)
-            s_saved = torch.empty((n_iter,) + (x.shape[0], w.shape[1],
-                                               w.shape[3]),
-                                  dtype=torch.float32, device=x.device)
-            out = _k3(xs, ws, n_iter, bf16, s_saved)
-        ctx.save_for_backward(xs, ws, s_saved)
+        out, s_saved = torch.ops.cyt.routing(x, w, n_iter, bf16, True)
+        ctx.save_for_backward(x, w, s_saved)
         ctx.n_iter, ctx.bf16 = n_iter, bf16
-        ctx.dtypes = (x.dtype, w.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        xs, ws, s_saved = ctx.saved_tensors
-        dx, dw = routed_capsules_backward(xs, ws, s_saved, g.contiguous(),
+        x, w, s_saved = ctx.saved_tensors
+        dx, dw = routed_capsules_backward(x, w, s_saved, g.contiguous(),
                                           ctx.n_iter, ctx.bf16)
-        return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None, None
+        return dx.to(x.dtype), dw.to(w.dtype), None, None
 
 
 def routed_capsules(x, w, n_iter=3, bf16=False):
@@ -198,19 +226,17 @@ def routed_capsules(x, w, n_iter=3, bf16=False):
     x: (B, N, 8) and w: (N, K, 8, 16), contiguous, f32 or bf16 (cast to
     bf16 when ``bf16``, to f32 otherwise); K <= 48.  Returns caps
     (B, K, 16) f32.  No (B, N, K, D) votes tensor is made on a card.
-    Differentiable in x and w (K4 on a card).  The count of calls that
-    launched the forward kernel is ``routed_capsules.launches`` (one
-    per call, which issues one CUDA kernel).
+    Differentiable in x and w (K4 on a card).  Calls the operator
+    ``torch.ops.cyt.routing``, which a traced program (export.py) keeps
+    as one node.  The count of calls that launched the forward kernel
+    is ``routed_capsules.launches`` (one per call, which issues one CUDA
+    kernel).
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"routed_capsules: unsupported device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return RoutedCapsules.apply(x, w, n_iter, bf16)
-    if x.device.type == "cpu":
-        return routed_capsules_plain(x, w, n_iter, bf16)
-    _check("routed_capsules", x, w, n_iter)
-    io = torch.bfloat16 if bf16 else torch.float32
-    return _k3(x.to(io), w.to(io), n_iter, bf16)
+    return torch.ops.cyt.routing(x, w, n_iter, bf16, False)[0]
 
 
 routed_capsules.launches = 0
@@ -221,11 +247,37 @@ def routed_capsules_backward(x, w, s_saved, g, n_iter=3, bf16=False):
     (B, K, D), given the forward's node sums ``s_saved`` (n_iter, B, K,
     D) f32.  x and w as the forward read them.  Returns dx (B, N, 8) and
     dW (N, K, 8, 16) in f32 (`RoutedCapsules` casts them to its inputs'
-    dtypes).  The count of calls that
-    launched the kernel is ``routed_capsules_backward.launches`` (one
-    per call; the call issues 2 * n_iter CUDA kernels)."""
-    if x.device.type == "cpu":
-        return routed_capsules_backward_plain(x, w, s_saved, g, n_iter, bf16)
+    dtypes).  Calls the operator ``torch.ops.cyt.routing_bwd``.  The
+    count of calls that launched the kernel is
+    ``routed_capsules_backward.launches`` (one per call; the call issues
+    2 * n_iter CUDA kernels)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"routed_capsules_backward: unsupported device "
+                         f"{x.device}")
+    return torch.ops.cyt.routing_bwd(x, w, s_saved, g, n_iter, bf16)
+
+
+routed_capsules_backward.launches = 0
+
+
+@torch.library.custom_op("cyt::routing_bwd", mutates_args=(),
+                         device_types="cpu")
+def routing_bwd_op(x: torch.Tensor, w: torch.Tensor, s_saved: torch.Tensor,
+                   g: torch.Tensor, n_iter: int,
+                   bf16: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 as an operator; this CPU implementation is the plain version."""
+    return routed_capsules_backward_plain(x, w, s_saved, g, n_iter, bf16)
+
+
+@routing_bwd_op.register_fake
+def _(x, w, s_saved, g, n_iter, bf16):
+    dt = _out_dtype(x)
+    return x.new_empty(x.shape, dtype=dt), w.new_empty(w.shape, dtype=dt)
+
+
+@routing_bwd_op.register_kernel("cuda")
+def _(x, w, s_saved, g, n_iter, bf16):
+    """The CUDA implementation: csrc/routing_bwd.cu, counted."""
     _check("routed_capsules_backward", x, w, n_iter)
     b, n, c = x.shape
     k, d = w.shape[1], w.shape[3]
@@ -260,9 +312,6 @@ def routed_capsules_backward(x, w, s_saved, g, n_iter=3, bf16=False):
     _build.check(err, "routing_bwd")
     routed_capsules_backward.launches += 1
     return dx, dw
-
-
-routed_capsules_backward.launches = 0
 
 
 def kernel_config(b, n, k, n_iter=3, dtype=torch.float32):

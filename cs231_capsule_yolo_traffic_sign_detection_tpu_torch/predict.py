@@ -29,18 +29,19 @@ predict.py's registry): the CLI loads its test set and writes an empty
 metric file.
 """
 
-import functools
+import itertools
 
 import numpy as np
 import torch
 
-from . import viz
+from . import export, viz
 from .data.loader import center_rgb
 from .device import compute_dtype, module_dtype, resolve_device
-from .models import CapsuleNet, ConvNet, DarkNet
+from .models import CapsuleNet, ConvNet, DarkCapsuleNet, DarkNet
+from .models.registry import resolve_routing_impl
 from .ops import decode as decode_ops, quant
 from .ops.boxes import combine_y_hat, y_to_boxes_vec
-from .ops.crop import crop_resize_bilinear, frame_crops
+from .ops.crop import frame_crops
 from .ops.input_stage import darknet_serving_apply, prepare_serving
 from .ops.preprocess import preprocess_images
 from .train import checkpoint as ckpt
@@ -67,19 +68,23 @@ def restore_darknet(params, model_dir, restore_file):
                     params, model_dir, restore_file)
 
 
-def restore_capsule(params, model_dir, restore_file):
+def restore_capsule(params, model_dir, restore_file, device="cuda"):
     """CapsuleNet from its checkpoint (see `_restore`), computing in
-    ``params.compute_dtype`` (f32 under int8: no quantized routing)."""
+    ``params.compute_dtype`` (f32 under int8: no quantized routing), with
+    the routing ``params.routing_impl`` resolves to on ``device``."""
     return _restore(CapsuleNet(
         n_classes=int(params.n_classes),
-        dtype=module_dtype(params.get("compute_dtype", "float32"))),
+        dtype=module_dtype(params.get("compute_dtype", "float32")),
+        routing_impl=resolve_routing_impl(
+            params.get("routing_impl", "auto"), "capsule", device)),
         params, model_dir, restore_file)
 
 
-def restore_convnet(params, model_dir, restore_file):
+def restore_convnet(params, model_dir, restore_file, device="cuda"):
     """ConvNet from its checkpoint (see `_restore`), computing in
     ``params.compute_dtype`` (built f32 under int8: the fused path
-    quantizes it, the host path serves it f32)."""
+    quantizes it, the host path serves it f32); ``device`` is unused (no
+    routing to resolve), as in `CLASSIFIERS`' other entry."""
     return _restore(ConvNet(
         n_classes=int(params.n_classes),
         dtype=module_dtype(params.get("compute_dtype", "float32"))),
@@ -89,12 +94,30 @@ def restore_convnet(params, model_dir, restore_file):
 CLASSIFIERS = {"capsule": restore_capsule, "cnn": restore_convnet}
 
 
-def restore_classifier(params, model_dir, restore_file):
-    """The classifier ``params.model`` names, restored."""
+def restore_model(params, model_dir, restore_file, device="cuda"):
+    """The eval-mode model of ``params.model`` (any of the five) from its
+    checkpoint, in ``params.compute_dtype`` (f32 modules under int8), on
+    ``device`` (JAX predict.restore_variables)."""
+    if params.model in CLASSIFIERS:
+        model = restore_classifier(params, model_dir, restore_file, device)
+    elif params.model == "darkcapsule":
+        model = _restore(DarkCapsuleNet(
+            n_grid=int(params.n_grid),
+            dtype=module_dtype(params.get("compute_dtype", "float32")),
+            routing_impl=resolve_routing_impl(
+                params.get("routing_impl", "auto"), "darkcapsule", device)),
+            params, model_dir, restore_file)
+    else:
+        model = restore_darknet(params, model_dir, restore_file)
+    return model.to(device)
+
+
+def restore_classifier(params, model_dir, restore_file, device="cuda"):
+    """The classifier ``params.model`` names, restored for ``device``."""
     if params.model not in CLASSIFIERS:
         raise ValueError(f"classifier {params.model!r} is not ported yet: "
                          f"{' | '.join(CLASSIFIERS)}")
-    return CLASSIFIERS[params.model](params, model_dir, restore_file)
+    return CLASSIFIERS[params.model](params, model_dir, restore_file, device)
 
 
 def _serve_batches(det, images, params, dev):
@@ -205,7 +228,7 @@ def class_pred(x, model_dir, params, restore_file, device="cuda"):
         y_hat = np.zeros((0, params.n_classes), np.float32)
         return y_hat, np.zeros((0,), np.int64)
     dev = resolve_device(device)
-    model = restore_classifier(params, model_dir, restore_file).to(dev)
+    model = restore_classifier(params, model_dir, restore_file, dev).to(dev)
     bs = int(params.batch_size)
     with torch.inference_mode():
         y_hat = torch.cat([model(torch.from_numpy(x[i:i + bs]).to(dev))
@@ -262,46 +285,20 @@ def dark_class_pred(images, dark_model_dir, dark_params, class_model_dir,
     return y_hat, output_images
 
 
-def tail_crops(x, y, *, n_boxes, n_classes, img_size, cap_input, max_crops,
-               conf_th):
-    """Decode -> crop -> center on the device: the fused pipeline after
-    the detector, without its classifier (JAX export.make_crops_fn's
-    tail).  x (B, S, S, 3) the detector's input, y (B, g, g, D) its grid;
-    the top ``max_crops`` boxes of each image by confidence are cropped
-    from x, those at or under ``conf_th`` as zeros.  Returns the decode
-    dict (see `decode_ops.decode_grid`) and the B * max_crops centered
-    crops (B * max_crops, cap_input, cap_input, 3)."""
-    d = decode_ops.decode_grid(y, n_classes=n_classes, n_boxes=n_boxes,
-                               img_size=img_size, max_boxes=max_crops,
-                               conf_th=conf_th)
-    crops = crop_resize_bilinear(x, d["xy"], cap_input, valid=d["valid"])
-    b, m = crops.shape[:2]
-    return d, center_rgb(crops.reshape(b * m, cap_input, cap_input, -1))
-
-
-def two_stage_tail(x, y, classify, **tail):
-    """`tail_crops`, then ``classify`` on all crops at once (JAX
-    export._two_stage_tail).  Returns the decode dict with
-    ``class_scores`` (B, max_crops, n_classes) f32."""
-    d, flat = tail_crops(x, y, **tail)
-    scores = classify(flat)
-    return dict(d, class_scores=scores.float().reshape(
-        x.shape[0], tail["max_crops"], -1))
-
-
 def _dark_class_pred_fused(images, dark_model_dir, dark_params,
                            class_model_dir, class_params, restore_file,
                            device="cuda", max_crops=16, conf_th=0.5):
-    """Fused two-stage pipeline (JAX COMPAT #33): per detector batch, on
-    the device, the detector (`_serve_batches`), `two_stage_tail` with
-    the classifier, then one fetch.  ``dark_params.compute_dtype`` runs
-    the detector in f32 or bf16 (K2, K1) or int8, ``class_params``'s
-    the classifier (the CLI sets both from --dtype).  Under int8 (JAX
-    predict.py:312-340, export.make_int8_two_stage_fn) the ConvNet runs
-    as `quant.convnet_int8_apply`, calibrated on the crops `tail_crops`
-    cuts from the first batch after the f32 detector module (cuDNN, no
-    kernel of the port; JAX export.make_crops_fn); CapsuleNet stays f32
-    with K3 (COMPAT #35).
+    """Fused two-stage pipeline (JAX COMPAT #33): per detector batch, one
+    pass on the device through the program the two-stage artifact holds
+    (`export.make_serving_two_stage_fn`, as JAX predict.py builds it from
+    export.make_two_stage_fn), then one fetch.  ``dark_params.
+    compute_dtype`` runs the detector in f32 or bf16 (K2, K1) or int8,
+    ``class_params``'s the classifier (the CLI sets both from --dtype).
+    Under int8 the detector is calibrated on the first batch and the
+    ConvNet runs as `quant.convnet_int8_apply`, calibrated on the crops
+    `export.make_crops_fn` cuts from that batch with the f32 detector
+    module (cuDNN, no kernel of the port); CapsuleNet stays f32 with K3
+    (COMPAT #35).
 
     Deviations from the host composition (as in the JAX package): crops
     are sampled from the darknet_input-sized detector input, not the
@@ -311,29 +308,25 @@ def _dark_class_pred_fused(images, dark_model_dir, dark_params,
     """
     dev = resolve_device(device)
     det = restore_darknet(dark_params, dark_model_dir, restore_file).to(dev)
-    cls = restore_classifier(class_params, class_model_dir,
-                             restore_file).to(dev)
+    cls = restore_classifier(class_params, class_model_dir, restore_file,
+                             dev).to(dev)
     nb = int(dark_params.n_boxes)
-    size = int(dark_params.darknet_input)
+    size, bs = int(dark_params.darknet_input), int(dark_params.batch_size)
     image_hw = np.array([im.shape[:2] for im in images])
-    tail = dict(n_boxes=nb, n_classes=int(dark_params.n_classes),
-                img_size=size,
-                cap_input=int(class_params.get("capsule_input", 32)),
-                max_crops=max_crops, conf_th=conf_th)
-    quantize_cls = (class_params.model == "cnn" and compute_dtype(
-        dark_params.get("compute_dtype", "float32")) == torch.int8)
+    common = dict(n_boxes=nb, n_classes=int(dark_params.n_classes),
+                  img_size=size,
+                  cap_input=int(class_params.get("capsule_input", 32)),
+                  max_crops=max_crops, conf_th=conf_th, with_grid=True)
 
     with torch.inference_mode():
-        outs = []
-        classify = cls
-        for xb, yb in _serve_batches(det, images, dark_params, dev):
-            if quantize_cls and classify is cls:
-                _, crops_cal = tail_crops(xb, det(xb), **tail)
-                classify = functools.partial(
-                    quant.convnet_int8_apply,
-                    quant.quantize_convnet(cls.state_dict(), crops_cal))
-            outs.append(dict(two_stage_tail(xb, yb, classify, **tail),
-                             grid=yb))
+        batches = (preprocess_images(images[i:i + bs], size, dev)
+                   for i in range(0, len(images), bs))
+        first = next(batches)
+        fn = export.make_serving_two_stage_fn(
+            det, cls, dtype=compute_dtype(dark_params.get("compute_dtype",
+                                                          "float32")),
+            x_cal=first, **common)
+        outs = [fn(xb) for xb in itertools.chain([first], batches)]
         out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
         y_hat = out.pop("grid").cpu().numpy()
         scores = out.pop("class_scores")

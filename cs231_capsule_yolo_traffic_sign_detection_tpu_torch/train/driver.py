@@ -31,6 +31,9 @@ loaded (when present) and the blocks up to ``params.fine_tune`` are
 frozen, as the JAX Trainer does for every model: for darkcapsule an npz
 that is present raises (its blocks are not darknet19's) and, its
 params.json having no ``fine_tune``, nothing is frozen.
+``--routing`` picks the capsule models' routing
+(`models.registry.resolve_routing_impl`) and ``--remat`` rematerializes
+the detectors' blocks in the backward (`models.layers.remat_block`).
 Not ported: --mesh, --stream, --scan_epoch, --async_ckpt,
 --ckpt_every.
 """
@@ -49,6 +52,7 @@ from ..metrics.detection import (darkcapsule_cell_f1, detect_acc,
                                  detect_and_recog_acc)
 from ..models import CapsuleNet, ConvNet, DarkCapsuleNet, DarkNet
 from ..models.darknet import freeze_darknet, load_darknet19_npz
+from ..models.registry import resolve_routing_impl
 from . import checkpoint as ckpt
 from .plateau import ReduceLROnPlateau
 from .steps import eval_step, make_optimizer, train_step
@@ -70,22 +74,28 @@ def _bounds(n, n_batch):
 
 def build_model(params, seed, device):
     """The model of ``params.model`` in ``params.compute_dtype``, its
-    weights from ``seed``, on ``device``."""
+    weights from ``seed``, on ``device``; the capsule models with the
+    routing ``params.routing_impl`` resolves to (``--routing``, default
+    auto), the detectors with ``params.remat`` (``--remat``)."""
     dtype = compute_dtype(params.get("compute_dtype", "float32"))
     dropout = float(params.get("dropout", 0.0))
+    impl = resolve_routing_impl(params.get("routing_impl", "auto"),
+                                params.model, device)
+    remat = bool(params.get("remat", False))
     if params.model == "capsule":
         model = CapsuleNet(n_classes=int(params.n_classes), dtype=dtype,
-                           seed=seed)
+                           seed=seed, routing_impl=impl)
     elif params.model == "cnn":
         model = ConvNet(n_classes=int(params.n_classes), dropout=dropout,
                         dtype=dtype, seed=seed)
     elif params.model == "darkcapsule":
         model = DarkCapsuleNet(n_grid=int(params.n_grid), dtype=dtype,
-                               seed=seed)
+                               seed=seed, routing_impl=impl, remat=remat)
     else:
         model = DarkNet(n_boxes=int(params.n_boxes),
                         n_classes=int(params.n_classes),
-                        dropout=dropout, dtype=dtype, seed=seed)
+                        dropout=dropout, dtype=dtype, seed=seed,
+                        remat=remat)
     return model.to(device)
 
 

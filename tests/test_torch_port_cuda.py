@@ -4,7 +4,10 @@ sampler and the two-stage pipeline on the card against the same calls
 on the CPU, one capsule train step on the card, and one darknet_r train
 step on the card against the same step on the CPU, with its dropout
 masks from a seeded generator; the NMS, the int8 products
-(``torch._int_mm``) and int8 serving on the card against the CPU.
+(``torch._int_mm``) and int8 serving on the card against the CPU; the
+serving artifacts (export.py) loaded on the card, their launch counts
+and outputs; --remat's step; each kernel through its registered
+operator after a NaN fill of shared memory.
 
 Every test here needs a CUDA card and skips without one.  This file
 imports nothing of JAX, so it also runs on a machine without it:
@@ -17,7 +20,7 @@ import pytest
 import torch
 
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import (
-    losses, predict)
+    export, losses, predict)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import loader
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
     resolve_device)
@@ -529,3 +532,149 @@ def test_int8_convnet_on_card_matches_cpu(card):
         x)
     want = quant.convnet_int8_apply(qc, x.cpu())
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------- PR 12
+
+def _launches():
+    return (ist.input_stage.launches, pool.maxpool2_leaky.launches,
+            routing.routed_capsules.launches,
+            routing.routed_capsules_backward.launches)
+
+
+def _artifact(fn, shape, tmp_path, name):
+    """``fn`` exported on the card with a symbolic batch, saved, loaded."""
+    blob = export.export_serving(fn, shape, device="cuda")
+    return export.load_serving(export.save(blob, str(tmp_path / name)),
+                               device="cuda")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_detector_artifact_on_card(card, tmp_path, dtype):
+    """A darknet_r artifact (128 px: at 64 px the int8 head's 2 x 2 maps
+    make the cuBLASLt row padding of `quant.int8_matmul` depend on the
+    batch, and a symbolic export refuses it) called at batch 3 and 2: K2
+    once and K1 four times a call (none under int8), counted only at the
+    call, and the outputs equal the live fn's (the same kernels and
+    ops)."""
+    model = DarkNet(1, 43, seed=0).cuda().eval()
+    x = torch.rand((3, 128, 128, 3), generator=card, device="cuda") * 255
+    kw = dict(n_boxes=1, n_classes=43, img_size=128, conf_th=0.5)
+    with torch.inference_mode():
+        fn = (export.make_int8_detector_fn(quant.quantize_darknet(
+            model.state_dict(), x_cal=x), **kw) if dtype == "int8" else
+            export.make_detector_fn(model, dtype=getattr(torch, dtype),
+                                    **kw))
+    before = _launches()
+    call = _artifact(fn, (128, 128, 3), tmp_path, f"det_{dtype}.pt2")
+    assert _launches() == before   # the trace launched nothing
+    k = 0 if dtype == "int8" else 1
+    for xb in (x, x[:2]):
+        before = _launches()
+        got = call(xb)
+        torch.cuda.synchronize()
+        after = _launches()
+        assert (after[0] - before[0], after[1] - before[1]) == (k, 4 * k)
+        with torch.inference_mode():
+            want = fn(xb)
+        for key in want:
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_capsule_artifact_on_card(card, tmp_path, dtype):
+    """A CapsuleNet artifact (pallas routing): K3 once a call at batch 5,
+    the scores within K3's bands of the plain routing's."""
+    model = CapsuleNet(43, dtype=dtype, seed=0).cuda().eval()
+    fn = export.make_classifier_fn(model)
+    call = _artifact(fn, (32, 32, 3), tmp_path, "caps.pt2")
+    x = torch.rand((5, 32, 32, 3), generator=card, device="cuda") * 2 - 1
+    before = routing.routed_capsules.launches
+    scores, _ = call(x)
+    torch.cuda.synchronize()
+    assert routing.routed_capsules.launches == before + 1
+    model.traffic_sign_capsules.impl = "xla"
+    with torch.inference_mode():
+        want = model(x)
+    tol = (dict(rtol=0.05, atol=5e-3) if dtype == torch.bfloat16
+           else dict(rtol=2e-5, atol=2e-6))
+    torch.testing.assert_close(scores, want, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_step_on_card(card, dtype):
+    """One darknet_r step (64 px, batch 2, dropout 0.5) with and without
+    --remat on the card, cuDNN deterministic: the loss to the bit, each
+    gradient's cosine with the plain step's at least 0.99999, the BN
+    buffers and the generator's state equal."""
+    x = (torch.rand((2, 64, 64, 3), generator=card, device="cuda") * 2
+         - 1).to(dtype)
+    _, y, _, _ = loader.synthetic_dataset("darknet_r", Params(
+        model="darknet_r", n_classes=43, n_grid=2, darknet_input=64), 2, 0)
+    y = torch.from_numpy(y).cuda()
+    cfg = losses.LossConfig.from_params(Params(
+        model="darknet_r", n_boxes=1, n_classes=43, n_grid=2,
+        darknet_input=64))
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            model = DarkNet(1, 43, dropout=0.5, dtype=dtype, seed=0,
+                            remat=remat).cuda().train()
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            loss = steps.loss_and_scores(model, x, y, cfg, "darknet_r",
+                                         gen)[0]
+            loss.backward()
+            runs.append((loss.item(), dict(model.named_parameters()),
+                         dict(model.named_buffers()), gen.get_state()))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (la, pa, ba, ga), (lb, pb, bb, gb) = runs
+    assert la == lb
+    for name, p in pa.items():
+        cos = torch.nn.functional.cosine_similarity(
+            p.grad.double().flatten(), pb[name].grad.double().flatten(), 0)
+        assert cos.item() >= 0.99999, (name, cos.item())
+    for name, b in ba.items():
+        assert torch.equal(b, bb[name]), name
+    assert torch.equal(ga, gb)
+
+
+def test_ops_after_nan_fill(card):
+    """Each kernel called as its registered operator (torch.ops.cyt.*)
+    just after every SM's shared memory was filled with NaN, against its
+    plain version: K1 exact, K2 f32 1e-5, K3 and K4 in their f32 bands;
+    each call counted once."""
+    x = torch.randn((2, 16, 24, 64), generator=card, device="cuda")
+    before = _launches()
+    _build.fill_shared_memory(float("nan"))
+    got = torch.ops.cyt.pool_leaky(x, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pool.maxpool2_leaky_plain(x).contiguous())
+
+    xi, w, b = _input_stage_operands(card, (2, 66, 136, 3))
+    _build.fill_shared_memory(float("nan"))
+    got = torch.ops.cyt.input_stage(xi, w, b, 0.1)
+    torch.cuda.synchronize()
+    wp, bp = ist.phase_kernel(w, b)
+    torch.testing.assert_close(got, ist.input_stage_apply(xi, wp, bp, 32),
+                               rtol=1e-5, atol=1e-5)
+
+    xr = torch.randn((5, 150, 8), generator=card, device="cuda")
+    wr = 0.1 * torch.randn((150, 7, 8, 16), generator=card, device="cuda")
+    _build.fill_shared_memory(float("nan"))
+    caps, s = torch.ops.cyt.routing(xr, wr, 3, False, True)
+    torch.cuda.synchronize()
+    want, s_want = routing.routing_states_plain(xr, wr, 3)
+    torch.testing.assert_close(caps, want, rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(s, s_want, rtol=2e-5, atol=2e-6)
+    g = torch.randn((5, 7, 16), generator=card, device="cuda")
+    _build.fill_shared_memory(float("nan"))
+    dx, dw = torch.ops.cyt.routing_bwd(xr, wr, s, g, 3, False)
+    torch.cuda.synchronize()
+    for got_g, want_g in zip((dx, dw), routing.routed_capsules_backward_plain(
+            xr, wr, s, g, 3)):
+        torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-6)
+    after = _launches()
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1, 1)

@@ -22,7 +22,7 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu.ops import quant as jq
 from cs231_capsule_yolo_traffic_sign_detection_tpu.params import (
     Params as JaxParams)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import (
-    __main__ as cli, predict)
+    __main__ as cli, export, predict)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.interop import (
     jax_qparams_to_port)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
@@ -272,7 +272,8 @@ def test_fused_int8_two_stage_matches_jax(pipeline, classifier):
     xt = torch.from_numpy(x)
     with torch.no_grad():
         grid = tq.darknet_int8_resident_apply(qp, xt, n_boxes=1, n_classes=43)
-        got = predict.two_stage_tail(xt, grid, classify, **TAIL)
+        got = export._two_stage_tail(xt, grid, classify=classify,
+                                     use_nms=False, with_grid=False, **TAIL)
     _agree(grid.numpy(), np.asarray(want["grid"]), 1e-5)
     if classifier == "cnn":
         # this detector's BN statistics come from the frames and its head

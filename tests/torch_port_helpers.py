@@ -2,7 +2,9 @@
 
 Weights are made once on the JAX side (flax init, plus randomised BN
 statistics for DarkNet so the BN fold is not trivial) and cross to the
-port as numpy arrays through the port's own interop.
+port as numpy arrays through the port's own interop; or, where a flax
+init would take seconds, made by the port and carried to JAX by the JAX
+package's converter (`jax_variables_from_port`).
 """
 
 import numpy as np
@@ -127,3 +129,46 @@ def torch_convnet(variables_np, n_classes=43, dtype=torch.float32):
     model.load_state_dict(
         jax_variables_to_state_dict(variables_np, "cnn"), strict=True)
     return model.eval()
+
+
+def jax_variables_from_port(model, model_name, jmodel, input_shape):
+    """The JAX variables (numpy) holding ``model``'s weights, through the
+    JAX package's own converter (interop.torch_to_variables) on a
+    template from ``jax.eval_shape`` of ``jmodel``'s init: no flax init
+    runs (op by op it takes seconds)."""
+    from cs231_capsule_yolo_traffic_sign_detection_tpu import (
+        interop as jax_interop)
+
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((1,) + tuple(input_shape))))
+    template = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype), dict(shapes))
+    sd = {k: v.detach().float().numpy() for k, v in model.state_dict().items()
+          if v.is_floating_point()}
+    return jax_interop.torch_to_variables(sd, model_name, template)
+
+
+def raise_bn(model, seed):
+    """``model`` with each BN parameter and statistic raised by 0.05
+    |N(0, 1)|, as JAX's int8 test builds its network."""
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, t in (list(model.named_parameters())
+                        + list(model.named_buffers())):
+            if ".bn_" in name and t.is_floating_point():
+                t.add_(torch.from_numpy(0.05 * np.abs(rng.randn(*t.shape))))
+    return model
+
+
+def port_capsulenet(n_classes, seed, dtype=torch.float32):
+    """The port's CapsuleNet with its two convs scaled up (x3, x10), as
+    `jax_capsulenet` scales JAX's (class scores spread over ~0.05-0.3),
+    and the same weights as JAX variables (`jax_variables_from_port`)."""
+    model = TorchCapsuleNet(n_classes, dtype=dtype, seed=seed).eval()
+    with torch.no_grad():
+        model.conv1.weight.mul_(3.0)
+        for m in model.primary_capsules.capsules:
+            m.weight.mul_(10.0)
+    return model, jax_variables_from_port(
+        model, "capsule", JaxCapsuleNet(n_classes, routing_impl="xla"),
+        (32, 32, 3))
