@@ -189,10 +189,31 @@ four just after):
    f32 and bf16, with and without remat (cuDNN deterministic): the loss
    to the bit, the gradients' cosines at least 0.99999, BN buffers and
    the generator state equal; peak memory and step ms of each; the s2d
-   int8 chain equal to the resident chain to the bit, both ms in turns.
+   int8 chain equal to the resident chain to the bit, both ms in turns;
+29. --stream: darknet_r training (448 px, batch 32, dropout 0.5, 2
+   epochs of 64 + 16 synthetic scenes) through `train_and_evaluate` over
+   --npy files, resident (centered float32) and streamed (memmapped
+   uint8 through the native prefetcher and pinned memory), cuDNN
+   deterministic: no launch, the losses equal; then a timed epoch of
+   each: ms a step beside phase 14's, the busy share (profile) and the
+   host's wait on the prefetcher;
+30. the mesh (parallel/): a one-rank NCCL group through the module API
+   (make_mesh(n_data=1)), one CapsuleNet step (K3 x1, K4 x1) and one
+   darknet_r step each equal to the bit to the plain Trainer's (cuDNN
+   deterministic), ms with and without the mesh; then two spawned ranks
+   on the one card over gloo (NCCL refuses two ranks of one
+   communicator on a device): the capsule step at 32 of 64 rows a rank
+   (K3 x1, K4 x1 on each; the route weights' gradient in K4's bands of
+   the single step, the others by cosine) and darknet_r `dark_detect` of
+   phase 5's scenes at batch 32, 16 rows a rank (K2 x1, K1 x4 a batch on
+   each; y_hat within phase 5's f32 band of single-process serving);
+31. --async_ckpt --ckpt_every 2 on 3 darknet_r epochs (cuDNN
+   deterministic): the same files with the same tensors as the
+   synchronous run; both walls a epoch.
+Phases 29-31 print their walls.
 
-The kernels line's K1 and K2 launches count phases 5, 18 and 25, K3's
-phases 8 and 26, K4's phases 11 and 27.  The line
+The kernels line's K1 and K2 launches count phases 5, 18, 25 and 30
+(f32), K3's phases 8, 26 and 30, K4's phases 11, 27 and 30.  The line
 before the last is the JSON ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -216,7 +237,8 @@ import torch.nn.functional as F
 # the port sits beside this script; alone, the script stops here
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import (
     Params, __main__ as cli, export, losses, predict, viz)
-from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import loader
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import (
+    loader, stream as data_stream)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
     resolve_device)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.metrics import (
@@ -232,6 +254,8 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
     input_stage as ist, pool, quant, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops.preprocess \
     import preprocess_images
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.parallel import (
+    mesh as par)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
     checkpoint as ckpt, driver, steps)
 
@@ -2781,6 +2805,358 @@ def run_remat_and_s2d(x_np, y_np, frames, model_dir, params):
           f"{s2d_ms:.3f} ms, in turns (phase 22 times the resident chain "
           f"with its decode; {SMI})")
 
+def stream_data(root):
+    """Phase 29's data: the 64 + 16 synthetic darknet_r scenes as .npy
+    files, uint8 for --stream (memmapped, centered by the prefetcher) and
+    centered float32 for the resident run."""
+    x_tr, y_tr, x_ev, y_ev = loader.synthetic_dataset(
+        "darknet_r", dark_train_params("float32"), DARK_TRAIN_SCENES,
+        DARK_EVAL_SCENES)
+    dirs = {}
+    for tag in ("resident", "stream"):
+        d = os.path.join(root, "data_" + tag)
+        os.makedirs(d, exist_ok=True)
+        for split, x, y in (("train", x_tr, y_tr), ("eval", x_ev, y_ev)):
+            u8 = np.clip(x * 128.0 + 128, 0, 255).astype(np.uint8)
+            np.save(os.path.join(d, f"{split}_X.npy"), u8 if tag == "stream"
+                    else np.asarray(loader.center_rgb(u8), np.float32))
+            np.save(os.path.join(d, f"{split}_Y.npy"), y)
+        dirs[tag] = d
+    return dirs
+
+
+def run_stream(root, step_ms):
+    """Phase 29: darknet_r training (448 px, batch 32, dropout 0.5, 2
+    epochs of 64 + 16 scenes) through `train_and_evaluate` with --npy,
+    resident and --stream (the memmapped uint8 scenes through the native
+    prefetcher and pinned memory), cuDNN deterministic: no kernel
+    launch, the losses equal.  Then one train epoch of each after a warm
+    one: ms a step, the device's busy share (profile) and the host's wait
+    on the prefetcher, beside phase 14's step ms."""
+    t_phase = time.perf_counter()
+    dirs = stream_data(root)
+    got = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tag in ("resident", "stream"):
+            model_dir = os.path.join(root, tag)
+            os.makedirs(model_dir, exist_ok=True)
+            np.random.seed(0)
+            reset_launches()
+            with contextlib.redirect_stdout(io.StringIO()):
+                driver.train_and_evaluate(
+                    dark_train_params("float32", npy=True,
+                                      stream=tag == "stream"),
+                    dirs[tag], model_dir, seed=0, device="cuda",
+                    progress=False)
+            launches = read_launches()
+            require(sum(launches.values()) == 0,
+                    f"stream: a kernel launched in training: {launches}")
+            got[tag] = np.concatenate([np.load(os.path.join(
+                model_dir, f"losses_{s}.npy")) for s in ("tr", "ev")])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    diff = float(np.max(np.abs(got["stream"] - got["resident"])
+                        / np.abs(got["resident"])))
+    print(f"[stream] darknet_r 2 epochs, train/eval losses resident "
+          f"{got['resident'].tolist()}, --stream {got['stream'].tolist()}; "
+          f"largest relative difference {diff} (cuDNN deterministic)")
+    require(diff <= 1e-6, f"--stream losses differ from resident by {diff}")
+    x_mm, y_mm = data_stream.open_memmap_dataset(dirs["stream"], "train")
+    require(isinstance(x_mm, np.memmap) and x_mm.dtype == np.uint8,
+            "stream: the scenes are not a uint8 memmap")
+    sets = {"resident": (np.load(os.path.join(dirs["resident"],
+                                               "train_X.npy")), y_mm),
+            "stream": (x_mm, y_mm)}
+    for tag, (x, y) in sets.items():
+        t = driver.Trainer(dark_train_params("float32",
+                                             stream=tag == "stream"),
+                           seed=0, device="cuda", verbose=False)
+        np.random.seed(0)
+
+        def epoch():
+            t.train_epoch(x, y, 1e-3, metric_on=False)
+
+        epoch()  # warm: cuDNN plans, the resident upload
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        n_steps = len(y) // BATCH
+        print(f"[stream] {tag}: train epoch of {len(y)} scenes ({n_steps} "
+              f"steps of {BATCH}) {wall:.3f} ms = {wall / n_steps:.3f} ms a "
+              f"step (phase 14's step: {step_ms[torch.float32]:.3f} ms); "
+              f"waiting on the prefetcher {t.prefetch_wait_s * 1e3:.3f} ms "
+              f"({SMI})")
+        profile_ms(epoch, wall, iters=2, groups=DARK_GROUPS, top=5)
+        del t
+    shutil.rmtree(root)
+    print(f"[stream] phase 29 wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def mesh_step_case(name, crops, labels, dx, dy):
+    """(params, x, y) of phase 30's steps: CapsuleNet at batch 64 through
+    K3/K4 (--routing pallas), darknet_r at 448 px, batch 32, dropout
+    0.5."""
+    if name == "capsule":
+        p = Params(os.path.join(HERE, "experiments", "capsule",
+                                "params.json"), model="capsule",
+                   n_epochs=1, lr_runtime=1e-3, recon=True, recon_coef=5e-4,
+                   eval_every=1, train_frac=1, summary=False,
+                   routing_impl="pallas")
+        return (p, torch.from_numpy(np.asarray(crops[:CAPS_BATCH],
+                                               np.float32)),
+                torch.from_numpy(np.asarray(labels[:CAPS_BATCH], np.int64)))
+    return (dark_train_params("float32"),
+            torch.from_numpy(np.asarray(dx[:BATCH], np.float32)),
+            torch.from_numpy(np.asarray(dy[:BATCH], np.float32)))
+
+
+def mesh_step(trainer, x, y):
+    """One train step of ``trainer`` on the global batch (x, y), this
+    rank's rows through it (`parallel.mesh.place_batch`), with its launch
+    counts; returns (global loss, state after, launches, the step)."""
+    n = x.shape[0]
+    if trainer.mesh is None:
+        xb, yb = x.cuda(), y.cuda()
+    else:
+        xb, yb = par.place_batch((x, y), trainer.mesh)
+    shard, group = trainer._shard(n)
+
+    def step():
+        return steps.train_step(trainer.model, trainer.opt, xb, yb, 1e-3,
+                                trainer.loss_cfg, trainer.model_name,
+                                trainer.generator, shard=shard,
+                                grad_group=group)
+
+    trainer.model.train()
+    reset_launches()
+    loss = step()[0]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if trainer.mesh is not None:
+        loss = par.all_reduce_rows(loss[None], trainer.mesh)[0] \
+            / trainer.mesh.n_data
+    state = {"grads": {k: p.grad.clone() for k, p in
+                       trainer.model.named_parameters()},
+             "params": {k: p.detach().clone() for k, p in
+                        trainer.model.named_parameters()},
+             "buffers": {k: b.clone() for k, b in
+                         trainer.model.named_buffers()},
+             "rng": (None if trainer.generator is None
+                     else trainer.generator.get_state())}
+    return loss.item(), state, launches, step
+
+
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a @ b) / (a.norm() * b.norm()))
+
+
+def mesh_rank(local_rank, port, root, model_dir):
+    """Phase 30's two ranks on the one card, over gloo (NCCL refuses two
+    ranks of one communicator on one device): a CapsuleNet step at
+    global batch 64 (32 rows a rank: K3 x1, K4 x1 on each) and its ms,
+    then darknet_r serving of phase 5's 64 scenes at batch 32 through
+    `dark_detect` (16 rows a rank: K2 x1, K1 x4 a batch on each); writes
+    what phase 30 checks to root/rank<r>.pt."""
+    par.initialize_distributed(f"127.0.0.1:{port}", 2, local_rank, "gloo")
+    try:
+        torch.cuda.set_device(0)
+        resolve_device("cuda")
+        mesh = par.make_mesh(n_data=2, device="cuda:0")
+        data = np.load(os.path.join(root, "data.npz"))
+        p, x, y = mesh_step_case("capsule", data["crops"], data["labels"],
+                                 None, None)
+        t = driver.Trainer(p, seed=0, device="cuda", verbose=False,
+                           mesh=mesh)
+        loss, state, caps_launches, step = mesh_step(t, x, y)
+        ms = time_ms(step, iters=10)
+        params = Params(os.path.join(HERE, "experiments", "darknet_r",
+                                     "params.json"), model="darknet_r",
+                        batch_size=BATCH, compute_dtype="float32")
+        reset_launches()
+        y_hat, _ = predict.dark_detect(list(data["frames"]), model_dir,
+                                       params, "last", mesh=mesh)
+        torch.cuda.synchronize()
+        torch.save({"loss": loss, "grads": {k: v.cpu() for k, v in
+                                            state["grads"].items()},
+                    "launches": caps_launches, "ms": ms, "y_hat": y_hat,
+                    "serve_launches": read_launches()},
+                   os.path.join(root, f"rank{local_rank}.pt"))
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_mesh(root, frames, model_dir, crops, labels, dx, dy):
+    """Phase 30: the mesh on the card.  A one-rank NCCL group through the
+    module API (make_mesh(n_data=1)): one CapsuleNet step (K3 x1, K4 x1)
+    and one darknet_r step, each equal to the bit to the plain Trainer's
+    (loss, gradients, parameters after Adam, BN buffers, generator;
+    cuDNN deterministic; a data axis of one syncs no BN, the gradients
+    go through the all-reduce), and each step's ms with and without the
+    mesh.  Then two spawned ranks on the one card over gloo
+    (`mesh_rank`): the capsule step's gradients in K4's bands of the
+    single step, the serving y_hat within phase 5's f32 band of
+    single-process `dark_detect`, and the launches on each rank.
+    Returns the launches of the paths, counted as the kernels line
+    counts them."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    counted = {k: 0 for k in kernel_wrappers()}
+    port = par._free_port()
+    par.initialize_distributed(f"127.0.0.1:{port}", 1, 0, "nccl")
+    try:
+        mesh = par.make_mesh(n_data=1, device="cuda:0")
+        for name in ("capsule", "darknet_r"):
+            p, x, y = mesh_step_case(name, crops, labels, dx, dy)
+            runs = {}
+            for tag, m in (("plain", None), ("mesh", mesh)):
+                t = driver.Trainer(p, seed=0, device="cuda", verbose=False,
+                                   mesh=m)
+                deterministic = torch.backends.cudnn.deterministic
+                torch.backends.cudnn.deterministic = True
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    loss, state, launches, step = mesh_step(t, x, y)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                    torch.backends.cudnn.deterministic = deterministic
+                runs[tag] = (loss, state, launches, time_ms(step, iters=10))
+                del t
+            (la, sa, na, ma), (lb, sb, nb, mb) = runs["plain"], runs["mesh"]
+            want = ({"routing": 1, "routing_bwd": 1} if name == "capsule"
+                    else {})
+            for n in (na, nb):
+                require(n == dict({k: 0 for k in counted}, **want),
+                        f"mesh {name}: launches {n}")
+            for k in counted:
+                counted[k] += nb[k]
+            require(la == lb, f"mesh {name}: loss {lb} vs {la}")
+            for part in ("grads", "params", "buffers"):
+                require(all(torch.equal(sa[part][k], sb[part][k])
+                            for k in sa[part]), f"mesh {name}: {part} differ")
+            require(sa["rng"] is None or torch.equal(sa["rng"], sb["rng"]),
+                    f"mesh {name}: generator state differs")
+            print(f"[mesh] {name} step, one-rank NCCL mesh (data=1): loss, "
+                  f"gradients, parameters after Adam, BN buffers and "
+                  f"generator equal to the plain Trainer's to the bit; "
+                  f"launches {nb}; {ma:.3f} ms plain, {mb:.3f} ms on the "
+                  f"mesh ({mb / ma:.3f}) ({SMI})")
+    finally:
+        torch.distributed.destroy_process_group()
+
+    p, x, y = mesh_step_case("capsule", crops, labels, dx, dy)
+    single = driver.Trainer(p, seed=0, device="cuda", verbose=False)
+    _, want, _, step = mesh_step(single, x, y)
+    single_ms = time_ms(step, iters=10)
+    params = Params(os.path.join(HERE, "experiments", "darknet_r",
+                                 "params.json"), model="darknet_r",
+                    batch_size=BATCH, compute_dtype="float32")
+    y_want, _ = predict.dark_detect(list(frames), model_dir, params, "last")
+    np.savez(os.path.join(root, "data.npz"), frames=frames,
+             crops=np.asarray(crops[:CAPS_BATCH], np.float32),
+             labels=np.asarray(labels[:CAPS_BATCH], np.int64))
+    t0 = time.perf_counter()
+    mp.spawn(mesh_rank, args=(par._free_port(), root, model_dir), nprocs=2,
+             join=True)
+    spawn_wall = time.perf_counter() - t0
+    n_batches = -(-len(frames) // BATCH)
+    for r in range(2):
+        got = torch.load(os.path.join(root, f"rank{r}.pt"),
+                         weights_only=False)
+        require(got["launches"] == {"pool_leaky": 0, "input_stage": 0,
+                                    "routing": 1, "routing_bwd": 1},
+                f"gloo mesh rank {r}: capsule step launches "
+                f"{got['launches']}")
+        require(got["serve_launches"] == {
+            "pool_leaky": 4 * n_batches, "input_stage": n_batches,
+            "routing": 0, "routing_bwd": 0},
+            f"gloo mesh rank {r}: serving launches {got['serve_launches']}")
+        for k in counted:
+            counted[k] += got["launches"][k] + got["serve_launches"][k]
+        key = "traffic_sign_capsules.route_weights"
+        w_err = grad_close(key, got["grads"][key].cuda(), want["grads"][key],
+                           False, scaled=True)
+        cos = min(cosine(got["grads"][k].cuda(), want["grads"][k])
+                  for k in want["grads"] if k != key)
+        require(cos >= 0.99999, f"gloo mesh rank {r}: a gradient's cosine "
+                f"with the single step's is {cos}")
+        err = np.abs(got["y_hat"] - y_want)
+        require(err.max() <= 5e-4, f"gloo mesh rank {r}: serving y_hat off "
+                f"by {err.max()}")
+        print(f"[mesh] two gloo ranks on one card, rank {r}: capsule step "
+              f"(32 of 64 rows) launches {got['launches']}, route weights' "
+              f"gradient in K4's bands of the single step's (largest error "
+              f"{w_err}), the others' least cosine {cos} (cuDNN at batch "
+              f"32 against 64), "
+              f"step {got['ms']:.3f} ms against {single_ms:.3f} ms single "
+              f"at 64; dark_detect of {len(frames)} scenes at batch {BATCH} "
+              f"(16 rows a rank) launches {got['serve_launches']}, y_hat "
+              f"max_abs_err {err.max()} against single-process ({SMI})")
+    shutil.rmtree(root)
+    print(f"[mesh] phase 30 wall {time.perf_counter() - t_phase:.1f} s "
+          f"(the two spawned ranks {spawn_wall:.1f} s)")
+    return counted
+
+
+def run_async_ckpt(root):
+    """Phase 31: darknet_r training, 3 epochs of 64 + 16 scenes with
+    --ckpt_every 2, synchronous then --async_ckpt (cuDNN deterministic):
+    the same checkpoint files holding the same tensors; each run's wall
+    a epoch."""
+    t_phase = time.perf_counter()
+    walls, files = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tag in ("sync", "async"):
+            model_dir = os.path.join(root, tag)
+            os.makedirs(model_dir, exist_ok=True)
+            np.random.seed(0)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                driver.train_and_evaluate(
+                    dark_train_params("float32", n_epochs=3, ckpt_every=2,
+                                      async_ckpt=tag == "async"),
+                    os.path.join(model_dir, "nodata"), model_dir, seed=0,
+                    device="cuda", progress=False)
+            torch.cuda.synchronize()
+            walls[tag] = (time.perf_counter() - t0) / 3
+            d = model_dir + "1"
+            files[tag] = {f: ckpt.load_checkpoint(os.path.join(d, f))
+                          for f in sorted(os.listdir(d))}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    require(list(files["sync"]) == list(files["async"])
+            and "last.ckpt" in files["sync"],
+            f"async_ckpt files {list(files['async'])} vs "
+            f"{list(files['sync'])}")
+    for f, want in files["sync"].items():
+        got = files["async"][f]
+        require(got["epoch"] == want["epoch"] == (3 if f == "last.ckpt"
+                                                  else want["epoch"]),
+                f"async_ckpt {f}: epoch {got['epoch']}")
+        for part in ("state_dict",):
+            require(all(torch.equal(got[part][k], want[part][k])
+                        for k in want[part]), f"async_ckpt {f}: {part}")
+        for i, st in want["optim_dict"]["state"].items():
+            require(all(torch.equal(got["optim_dict"]["state"][i][k], v)
+                        for k, v in st.items()),
+                    f"async_ckpt {f}: Adam state {i}")
+    shutil.rmtree(root)
+    print(f"[async_ckpt] darknet_r 3 epochs, --ckpt_every 2: files "
+          f"{list(files['sync'])} equal sync and async (epochs "
+          f"{[c['epoch'] for c in files['sync'].values()]}); wall a epoch "
+          f"(train, eval, checkpoints) {walls['sync']:.3f} s sync, "
+          f"{walls['async']:.3f} s async ({SMI}); phase 31 wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
 
 def main():
     global SMI
@@ -2884,7 +3260,7 @@ def main():
           f"checkpoint: {dark_launches}")
 
     # phase 14
-    time_dark_train_step(dark_train_params("float32"), dx, dy)
+    dark_step_ms = time_dark_train_step(dark_train_params("float32"), dx, dy)
 
     # phase 15
     cnn_dir = run_cnn_train_slice(os.path.join(HERE, "build", "chip_smoke",
@@ -2942,15 +3318,28 @@ def main():
     routing_launches = run_routing_choice(tcrops, tlabels)
     run_remat_and_s2d(dx, dy, frames, model_dir, params)
 
+    # phases 29-31: --stream, the mesh, --async_ckpt --ckpt_every
+    run_stream(os.path.join(HERE, "build", "chip_smoke", "stream"),
+               dark_step_ms)
+    mesh_launches = run_mesh(os.path.join(HERE, "build", "chip_smoke",
+                                          "mesh"), frames, model_dir,
+                             crops, labels, dx, dy)
+    run_async_ckpt(os.path.join(HERE, "build", "chip_smoke", "async_ckpt"))
+
     # K1 and K2 on the main paths: darknet_r's (phase 5) and darknet_d's
-    # (phase 18) serving, and the detector artifacts' (phase 25); K3 on
-    # the capsule slice (phase 8) and its artifact (phase 26); K4 on the
-    # training slice (phase 11) and the --routing pallas step (phase 27)
+    # (phase 18) serving, the detector artifacts' (phase 25) and mesh
+    # serving (phase 30, f32); K3 on the capsule slice (phase 8), its
+    # artifact (phase 26) and the mesh steps (phase 30); K4 on the
+    # training slice (phase 11), the --routing pallas step (phase 27) and
+    # the mesh steps (phase 30); phase 29 (training) launches none
     for dtype, runs in slice_launches.items():
         for k in ("pool_leaky", "input_stage"):
             runs[k] += d_launches[dtype][k] + art_launches[dtype][k]
-    caps_launches["routing"] += caps_art["routing"]
-    train_launches["routing_bwd"] += routing_launches["routing_bwd"]
+    for k in ("pool_leaky", "input_stage"):
+        slice_launches["float32"][k] += mesh_launches[k]
+    caps_launches["routing"] += caps_art["routing"] + mesh_launches["routing"]
+    train_launches["routing_bwd"] += (routing_launches["routing_bwd"]
+                                      + mesh_launches["routing_bwd"])
 
     pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu_torch"
     jax_pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu"

@@ -18,7 +18,10 @@ two-stage darknet_r|darknet_d --combine capsule|cnn.
         [--fine_tune N] [--npy] [--recon] [--recon_coef C] \\
         [--eval_every N] [--train_frac F] [--no_metric] \\
         [--restore last|best] [--device cuda|cpu] [--model_dir DIR] \\
-        [--routing auto|xla|pallas] [--remat]
+        [--routing auto|xla|pallas] [--remat] [--stream] \\
+        [--async_ckpt] [--ckpt_every N]
+    ... [--mesh auto|off|data=N[,model=M]] \\
+        [--coordinator HOST:PORT --num_processes P --process_id I]
 
 Reads ``<model_dir>/params.json``.  predict reads
 ``<model_dir>/<restore>.ckpt`` (the reference's torch format; else the
@@ -61,6 +64,19 @@ read).  ``--routing`` picks the capsule models' routing (pallas: the K3/K4
 kernels; xla: the plain composition; auto: pallas for capsule on the
 card, xla for darkcapsule and on the CPU), in predict and training;
 ``--remat`` rematerializes the detectors' conv blocks in training.
+``--stream`` feeds training from the native prefetcher (the dataset
+stays on the host, memmapped with ``--npy``), ``--async_ckpt`` writes
+checkpoints on a worker thread and ``--ckpt_every N`` writes ``last``
+every Nth epoch (and on the last; ``best`` whenever it improves).
+``--mesh data=N[,model=M]`` runs N*M ranks (parallel/mesh.py; rank r on
+``cuda:r`` over NCCL, or on the CPU over gloo with ``--device cpu``):
+data parallel with global-batch BatchNorm, the capsule route weights
+split over the model axis; ``auto``, the default, is every card when
+there are more than one, off otherwise (and on the CPU).  With
+``--coordinator HOST:PORT --num_processes P --process_id I`` this process
+runs its N*M/P of the ranks (one such process per host).  Rank 0 alone
+prints the summary and the epochs and writes the checkpoints,
+histories, metrics and frames.
 Training refuses ``--dtype int8`` (serving only), and any other
 mode exits with a "not ported yet" message.
 """
@@ -71,6 +87,7 @@ import pickle
 import sys
 
 import numpy as np
+import torch.distributed as dist
 
 from . import config
 from .data import loader
@@ -81,6 +98,7 @@ from .device import compute_dtype, resolve_device
 from .metrics.detection import (detect_AP, detect_acc, detect_and_recog_acc,
                                 detect_and_recog_mAP)
 from .models.registry import ROUTING_IMPLS
+from .parallel import mesh as par
 from .params import Params
 from .predict import CLASSIFIERS, class_pred, dark_class_pred, dark_pred
 from .train.driver import train_and_evaluate
@@ -142,6 +160,34 @@ parser.add_argument("--remat", default=False, action="store_true",
 parser.add_argument("--nms", default=False, action="store_true",
                     help="greedy NMS over the detector's boxes in predict "
                     "(the reference has none)")
+parser.add_argument("--mesh", default="auto",
+                    help="device mesh: auto | off | data=N[,model=M] "
+                    "(auto = all local cards data-parallel when >1; the "
+                    "reference is single-device, main.py:231)")
+parser.add_argument("--coordinator", default=None,
+                    help="multi-host: rendezvous address host:port. Launch "
+                    "one process per host with the same --coordinator/"
+                    "--num_processes and a distinct --process_id; --mesh "
+                    "then spans every host's ranks and rank 0 writes "
+                    "artifacts")
+parser.add_argument("--num_processes", default=None, type=int,
+                    help="multi-host: total process count (with "
+                    "--coordinator)")
+parser.add_argument("--process_id", default=None, type=int,
+                    help="multi-host: this process's id (with "
+                    "--coordinator)")
+parser.add_argument("--stream", default=False, action="store_true",
+                    help="host-streaming data path for datasets larger than "
+                    "device memory: batches assembled ahead of the device by "
+                    "the native threaded prefetcher (memmap-friendly; "
+                    "identical batches to the default path)")
+parser.add_argument("--async_ckpt", default=False, action="store_true",
+                    help="write checkpoints on a background thread (same "
+                    "last/best semantics, flushed at exit)")
+parser.add_argument("--ckpt_every", default=1, type=int,
+                    help="save the last checkpoint every N epochs "
+                    "(best-on-improvement always saved; default 1 = "
+                    "reference behavior)")
 # the JAX CLI's: --summary's default makes it always true; --show is
 # parsed and never read
 parser.add_argument("--summary", default=True, action="store_true",
@@ -195,27 +241,51 @@ def main(argv=None):
     if args.routing not in ROUTING_IMPLS:
         sys.exit(f"--routing {args.routing}: choose from "
                  + " | ".join(ROUTING_IMPLS))
-    combine = args.mode == "predict" and args.model in DETECTORS \
-        and args.combine is not None
-    if combine and args.combine not in CLASSIFIERS:
+    if is_combine(args) and args.combine not in CLASSIFIERS:
         sys.exit(f"--combine {args.combine}: choose from "
                  + " | ".join(CLASSIFIERS))
+    if (args.coordinator is None) != (args.num_processes is None) \
+            or (args.coordinator is None) != (args.process_id is None):
+        sys.exit("--coordinator, --num_processes and --process_id go "
+                 "together")
+    try:
+        shape = par.mesh_shape(args.mesh, args.device,
+                               args.num_processes or 1)
+    except ValueError as e:
+        sys.exit(str(e))
+    if shape is None:
+        if args.coordinator is not None:
+            sys.exit("--coordinator needs a --mesh of more than one rank")
+        run(args)
+        return
+    par.launch(run, (args,), *shape, device=args.device,
+               coordinator=args.coordinator,
+               num_processes=args.num_processes or 1,
+               process_id=args.process_id or 0)
 
+
+def run(args, mesh=None):
+    """The checked CLI's work on one rank (``mesh``) or alone; under a
+    mesh every rank runs the forwards and steps, rank 0 writes."""
+    primary = mesh is None or mesh.is_primary
     data_dir = config.data_dir[args.model]
     model_dir = args.model_dir or config.model_dir[args.model]
     params = load_params(model_dir, args, args.model)
     np.random.seed(args.seed)
     if args.mode in ("train", "overfit"):
-        train(args, params, data_dir, model_dir)
+        train(args, params, data_dir, model_dir, mesh)
         return
 
+    combine = is_combine(args)
     save_path = model_dir + "/metric_output.txt"
     output = None
     if args.model in CLASSIFIERS:
         # classifier crops are used as loaded
         x, y = load_test_set(data_dir, args.model, params)
         y_hat, _ = class_pred(x, model_dir, params, args.restore,
-                              device=args.device)
+                              device=args.device, mesh=mesh)
+        if not primary:
+            return
         metric_out = {
             "recog_pr": recog_pr(y, y_hat, params, save=True,
                                  save_dir=model_dir),
@@ -229,7 +299,9 @@ def main(argv=None):
         y_hat, output = dark_class_pred(
             x, model_dir, params, class_model_dir, class_params,
             args.restore, device=args.device, device_crop=args.device_crop,
-            max_crops=args.max_crops)
+            max_crops=args.max_crops, mesh=mesh)
+        if not primary:
+            return
         plot_dir = model_dir + f"/combine-{args.combine}_mAP"
         os.makedirs(plot_dir, exist_ok=True)
         metric_out = {
@@ -243,12 +315,17 @@ def main(argv=None):
         resolve_device(args.device)
         load_test_frames(data_dir, args.model, params)
         metric_out = {}
+        if not primary:
+            return
     else:
         x, y = load_test_frames(data_dir, args.model, params)
+        y_hat, output = dark_pred(x, model_dir, params, args.restore, y=y,
+                                  use_nms=args.nms, device=args.device,
+                                  mesh=mesh)
+        if not primary:
+            return
         plot_dir = model_dir + "/detect_ap"
         os.makedirs(plot_dir, exist_ok=True)
-        y_hat, output = dark_pred(x, model_dir, params, args.restore, y=y,
-                                  use_nms=args.nms, device=args.device)
         metric_out = {"detect_AP": detect_AP(y, y_hat, params, save=True,
                                              save_dir=plot_dir),
                       "detect_acc": detect_acc(y, y_hat, params)}
@@ -263,6 +340,13 @@ def main(argv=None):
             write_png(os.path.join(out_dir, f"{i}.png"), image)
 
 
+def is_combine(args):
+    """Whether the CLI runs the two-stage pipeline (a detector's predict
+    with --combine)."""
+    return (args.mode == "predict" and args.model in DETECTORS
+            and args.combine is not None)
+
+
 def load_params(model_dir, args, model):
     """``<model_dir>/params.json`` with the CLI's overrides for ``model``
     (JAX main.py:131-163)."""
@@ -274,14 +358,17 @@ def load_params(model_dir, args, model):
     params.summary = bool(args.summary)
     params.routing_impl = args.routing
     params.remat = args.remat
+    params.stream = args.stream
+    params.async_ckpt = args.async_ckpt
+    params.ckpt_every = args.ckpt_every
     if args.dropout >= 0:
         params.dropout = args.dropout
     return params
 
 
-def train(args, params, data_dir, model_dir):
+def train(args, params, data_dir, model_dir, mesh=None):
     """--mode train | overfit, with the JAX CLI's params (main.py:131-163)
-    and data (main.py:215-235)."""
+    and data (main.py:215-235); rank 0 alone writes the scalars."""
     params.seed = args.seed
     params.recon = args.recon
     params.recon_coef = float(args.recon_coef)
@@ -289,16 +376,20 @@ def train(args, params, data_dir, model_dir):
     params.lr_runtime = args.lr
     params.do_fine_tune = args.fine_tune > 0
     is_small = args.mode == "overfit"
-    if is_small:
+    primary = mesh is None or mesh.is_primary
+    if is_small and primary:
         try:
             loader.make_small_data(data_dir, 3)
         except (FileNotFoundError, OSError):
             print("[overfit] dataset absent; synthetic small set will be "
                   "used")
+    if is_small and mesh is not None:
+        dist.barrier()  # the small set is written before any rank reads it
     train_and_evaluate(params, data_dir, model_dir, is_small=is_small,
-                       restore_file=args.restore, writer=ScalarWriter(),
+                       restore_file=args.restore,
+                       writer=ScalarWriter() if primary else None,
                        no_metric=args.no_metric, seed=args.seed,
-                       device=args.device)
+                       device=args.device, mesh=mesh)
 
 
 if __name__ == "__main__":

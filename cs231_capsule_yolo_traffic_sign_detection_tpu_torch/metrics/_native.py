@@ -2,58 +2,22 @@
 the counterpart of the JAX metrics/_native.py and native_util.py.
 
 The port's own copy of the JAX package's ``native/confusion.cpp`` is
-compiled with g++ at its first use into ``build/native/`` at the
-repository root (gitignored); the library's name carries a hash of the
-source and flags, so a changed source rebuilds.  A failed build raises:
-unlike the JAX package, which returns None and falls back to numpy in
-silence, the port hides no fallback (`confusion_sweep(use_native=
+compiled with g++ at its first use (`native.build`: into
+``build/native/``, a failed build raises; `confusion_sweep(use_native=
 False)` is the numpy path, asked for by name).
 """
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import tempfile
 
 import numpy as np
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "confusion.cpp")
-# no -march=native and no FMA contraction: the IoU is then the same
-# IEEE expression as the numpy sweep's on every machine
-FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off")
-
-
-def build_dir():
-    return os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-        SOURCE))), "build", "native")
+from .. import native
 
 
 def build():
     """Compile csrc/confusion.cpp if needed; returns the library path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(" ".join(FLAGS).encode() + f.read())
-    out_dir = build_dir()
-    lib = os.path.join(out_dir,
-                       f"libconfusion_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(out_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        tmp_lib = os.path.join(tmp, "lib.so")
-        cmd = ["g++", *FLAGS, "-o", tmp_lib, SOURCE]
-        try:
-            res = subprocess.run(cmd, capture_output=True, text=True)
-        except FileNotFoundError:
-            raise RuntimeError("g++ not found: the native confusion sweep "
-                               "cannot be built") from None
-        if res.returncode != 0:
-            raise RuntimeError(f"g++ failed ({' '.join(cmd)}):\n"
-                               f"{res.stdout}{res.stderr}")
-        os.replace(tmp_lib, lib)   # atomic: concurrent builds agree
-    return lib
+    return native.build("confusion.cpp", "libconfusion")
 
 
 @functools.lru_cache(maxsize=None)

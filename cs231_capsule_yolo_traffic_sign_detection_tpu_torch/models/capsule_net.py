@@ -21,7 +21,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.capsule import (capsule_norm, compute_priors, dynamic_routing,
-                           routed_single_capsule, squash)
+                           node_sharded_routing, routed_single_capsule,
+                           squash)
+from ..parallel.collectives import NodeShard
 from ..ops.routing import routed_capsules
 from .init import init_capsulenet
 from .layers import ReconDecoder
@@ -42,7 +44,8 @@ class PrimaryCapsules(nn.Module):
         # the eight convs as one: output channel j*16 + c is conv j's c
         w = torch.cat([m.weight for m in self.capsules]).to(dtype)
         b = torch.cat([m.bias for m in self.capsules]).to(dtype)
-        y = F.conv2d(x.to(dtype), w, b, stride=self.stride).float()
+        y = F.conv2d(x.to(dtype), w, b, stride=self.stride).to(
+            torch.promote_types(dtype, torch.float32))  # f32, f64 kept
         # (B, j*16 + c, p) -> (B, c*81 + p, j): vector j per node (c, p)
         y = y.reshape(y.shape[0], len(self.capsules), -1).transpose(1, 2)
         return squash(y.contiguous())
@@ -57,7 +60,9 @@ class CapsuleRouting(nn.Module):
     ops/capsule.py (votes, then `dynamic_routing`) in f32 on any device,
     differentiated by autograd.  One output capsule takes the closed
     form whatever ``impl``.  The route weights start at zero:
-    CapsuleNet draws them from its seed (models/init.py)."""
+    CapsuleNet draws them from its seed (models/init.py).  Under a
+    mesh's model axis `shard_nodes` keeps this rank's nodes only, and the
+    forward runs `ops.capsule.node_sharded_routing`."""
 
     def __init__(self, n_caps, n_nodes, in_c, out_c, n_iter=3,
                  impl="pallas"):
@@ -68,9 +73,28 @@ class CapsuleRouting(nn.Module):
         self.route_weights = nn.Parameter(
             torch.zeros(1, n_nodes, n_caps, in_c, out_c))
         self._bf16_key, self._bf16_w = None, None
+        self.node_shard = None
+
+    def shard_nodes(self, group, rank, n_shards):
+        """Keep nodes [rank * N / n_shards, (rank + 1) * N / n_shards) of
+        the route weights (a new, smaller parameter) and route over the
+        node split of ``group`` from now on; the plain routing only (the
+        fused kernel takes every node)."""
+        n = self.route_weights.shape[1]
+        if n % n_shards:
+            raise ValueError(f"{n} routing nodes do not split over "
+                             f"{n_shards} model ranks")
+        per = n // n_shards
+        self.node_shard = NodeShard(group, rank * per, (rank + 1) * per)
+        self.impl = "xla"
+        self.route_weights = nn.Parameter(
+            self.route_weights.detach()[:, rank * per:(rank + 1) * per]
+            .clone())
 
     def forward(self, x, bf16=False):
         w = self.route_weights[0]
+        if self.node_shard is not None:  # f32 whatever bf16, as "xla"
+            return node_sharded_routing(x, w, self.node_shard, self.n_iter)
         if w.shape[1] == 1:
             return routed_single_capsule(x, w)
         if self.impl == "xla":  # f32 whatever bf16, as the JAX module

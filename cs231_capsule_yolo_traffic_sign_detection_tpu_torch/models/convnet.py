@@ -48,22 +48,24 @@ class ConvNet(nn.Module):
             nn.Linear(128, n_classes))
         init_convnet(self, seed)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, shard=None):
         """NHWC crops (B, 32, 32, 3) -> logits (B, n_classes), f32 (f64
         for a float64 model).  ``generator`` (on x's device) draws the
-        dropout masks in training."""
+        dropout masks in training; ``shard`` (a `BatchShard`: x holds a
+        data rank's rows) makes BN and dropout the global batch's."""
         dt = self.dtype
         x = x.permute(0, 3, 1, 2).to(dt)  # NHWC -> channels_last NCHW view
         for conv, bn in ((self.cnn[0], self.cnn[1]),
                          (self.cnn[4], self.cnn[5])):
             x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=1)
-            x = F.leaky_relu(batch_norm(x, bn, bn.training), 0.01)
+            x = F.leaky_relu(batch_norm(x, bn, bn.training, shard=shard),
+                             0.01)
             if bn.training and self.dropout > 0:
                 if generator is None:
                     raise ValueError("ConvNet: training with dropout draws "
                                      "its masks from a torch.Generator; "
                                      "none was given")
-                x = dropout(x, self.dropout, generator)
+                x = dropout(x, self.dropout, generator, shard)
         x = F.max_pool2d(x, 2, 2).reshape(x.shape[0], -1)  # CHW flatten
         fc1, fc2 = self.cnn[10], self.cnn[12]
         x = F.relu(F.linear(x, fc1.weight.to(dt), fc1.bias.to(dt)))

@@ -84,15 +84,16 @@ class DarkCapsuleNet(nn.Module):
         """The module holding conv_i / bn_i (the fine-tune branch's)."""
         return self.conv
 
-    def forward(self, x):
+    def forward(self, x, shard=None):
         """x: (B, 32 g, 32 g, 3) NHWC -> capsules (B, g, g, 5), f32 (f64
-        for a float64 model)."""
+        for a float64 model).  ``shard`` (a `BatchShard`: x holds a data
+        rank's rows) makes BN the global batch's."""
         b, g = x.shape[0], self.n_grid
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         remat = self.remat and torch.is_grad_enabled()
         for blk in self._blocks:
-            x = (remat_block(blk, x, self.dtype) if remat
-                 else blk(x, self.dtype))
+            x = (remat_block(blk, x, self.dtype, shard=shard) if remat
+                 else blk(x, self.dtype, shard=shard))
         w = self.traffic_sign_capsules.route_weights
         caps = self.traffic_sign_capsules(grid_capsules(x, g).to(w.dtype))
         return caps.reshape(g, g, b, 5).permute(2, 0, 1, 3)

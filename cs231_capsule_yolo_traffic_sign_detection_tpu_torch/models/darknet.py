@@ -97,17 +97,18 @@ class DarkNet(nn.Module):
         """The module holding conv_i / bn_i (for the npz and the freeze)."""
         return self.model
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, shard=None):
         """x: (B, H, W, 3) NHWC -> (B, H/32, W/32, 5B+C) NHWC grid, f32
         (f64 for a float64 model).
         ``generator`` (on x's device) draws the dropout masks in
-        training."""
+        training; ``shard`` (a `BatchShard`: x holds a data rank's rows)
+        makes BN and dropout the global batch's."""
         dt = self.dtype
         x = x.permute(0, 3, 1, 2).to(dt)  # NHWC -> channels_last NCHW view
         remat = self.remat and torch.is_grad_enabled()
         for blk, after in self._blocks:
-            x = (remat_block(blk, x, dt, generator) if remat
-                 else blk(x, dt, generator))
+            x = (remat_block(blk, x, dt, generator, shard) if remat
+                 else blk(x, dt, generator, shard=shard))
             if after == "mp":
                 x = F.max_pool2d(x, 2, 2)
         out = F.conv2d(x, self.model.conv_19.weight.to(dt))

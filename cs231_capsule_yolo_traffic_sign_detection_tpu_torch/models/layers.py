@@ -8,8 +8,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.collectives import global_batch_stats
 
-def batch_norm(x, bn, training, update=True):
+
+def batch_norm(x, bn, training, update=True, shard=None):
     """``bn`` (an ``nn.BatchNorm2d``) over NCHW x as flax's BatchNorm runs
     it: the statistics, scale, bias and running buffers in f32 whatever
     x's dtype, the output in x's dtype.  ``update=False`` normalizes by
@@ -22,6 +24,13 @@ def batch_norm(x, bn, training, update=True):
     so they may not change after) to rv' = (1 - m) rv + m n/(n-1) var
     for n values per channel; the buffer then takes rv' - (rv' - (1 - m)
     rv) / n = (1 - m) rv + m var.
+
+    With ``shard`` (a `parallel.collectives.BatchShard`: x holds a data
+    rank's rows of a batch split over a mesh's data axis) the statistics
+    are the global batch's, as JAX's BatchNorm under GSPMD reduces over
+    the sharded batch: one differentiable all-reduce of the channel sums,
+    sums of squares and count, and the running variance takes the
+    global batch's biased variance.
     """
     if not training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
@@ -29,6 +38,8 @@ def batch_norm(x, bn, training, update=True):
     m = bn.momentum
     if m is None:  # nn.BatchNorm2d's cumulative average: reads the count
         m = 1.0 / (float(bn.num_batches_tracked) + 1.0)
+    if shard is not None:
+        return _global_batch_norm(x, bn, m, update, shard)
     mean, var = bn.running_mean.clone(), bn.running_var.clone()
     y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, m, bn.eps)
     if not update:
@@ -41,14 +52,39 @@ def batch_norm(x, bn, training, update=True):
     return y
 
 
-def dropout(x, p, generator):
+def _global_batch_norm(x, bn, m, update, shard):
+    """`batch_norm` in training on the global batch's statistics."""
+    mean, var = global_batch_stats(x, shard)
+    inv = torch.rsqrt(var + bn.eps) * bn.weight.to(mean.dtype)
+    y = ((x.to(mean.dtype) - mean[:, None, None]) * inv[:, None, None]
+         + bn.bias.to(mean.dtype)[:, None, None])
+    if update:
+        with torch.no_grad():
+            bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            bn.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+            bn.num_batches_tracked.add_(1)
+    return y.to(x.dtype)
+
+
+def dropout(x, p, generator, shard=None):
     """Flax's dropout: keep each value with probability 1 - p, drawn from
-    ``generator`` (on x's device), and scale the kept ones by 1/(1 - p)."""
+    ``generator`` (on x's device), and scale the kept ones by 1/(1 - p).
+    With ``shard`` (a `BatchShard`), the mask of the global batch is
+    drawn, in x's layout, and x's rows kept: the masks and the
+    generator's state are the single-process run's."""
     keep = 1.0 - p
     # in x's memory format: a contiguous (NCHW) mask would turn the
     # result, and every later activation, NCHW
-    mask = torch.empty_like(x, dtype=torch.bool).bernoulli_(
-        keep, generator=generator)
+    if shard is None:
+        mask = torch.empty_like(x, dtype=torch.bool)
+    else:
+        mask = torch.empty_strided(
+            (shard.n_global,) + tuple(x.shape[1:]),
+            (x[0].numel(),) + tuple(x.stride()[1:]), dtype=torch.bool,
+            device=x.device)
+    mask.bernoulli_(keep, generator=generator)
+    if shard is not None:
+        mask = mask[shard.lo:shard.hi]
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -79,15 +115,17 @@ class ConvBNLeaky(nn.Module):
         self.add_module("bn" + self.suffix, nn.BatchNorm2d(
             features, eps=1e-5, momentum=bn_momentum))
 
-    def forward(self, x, dtype=torch.float32, generator=None, memo=None):
+    def forward(self, x, dtype=torch.float32, generator=None, memo=None,
+                shard=None):
         """The conv in ``dtype`` on the f32 weight (and bias) cast to it,
         BN (f32 statistics, output in ``dtype``), leaky and dropout in
         ``dtype``.  Dropout, in training only, draws from
-        ``generator``.  ``memo`` (a dict, `remat_block`'s) marks a
-        second run of the same call: the first records the generator's
-        state before the dropout draw, the second updates no BN buffer
-        and draws the same mask from a copy of that state, so the
-        trainer's generator moves once."""
+        ``generator``.  ``shard`` (a `BatchShard`, under a mesh) makes
+        BN and dropout the global batch's.  ``memo`` (a dict,
+        `remat_block`'s) marks a second run of the same call: the first
+        records the generator's state before the dropout draw, the
+        second updates no BN buffer and draws the same mask from a copy
+        of that state, so the trainer's generator moves once."""
         conv = getattr(self, "conv" + self.suffix)
         bn = getattr(self, "bn" + self.suffix)
         # the mode is the children's: the model registers them, not the block
@@ -96,7 +134,7 @@ class ConvBNLeaky(nn.Module):
         bias = None if conv.bias is None else conv.bias.to(dtype)
         x = F.conv2d(x.to(dtype), conv.weight.to(dtype), bias,
                      stride=conv.stride, padding=conv.padding)
-        x = batch_norm(x, bn, training, update=not rerun)
+        x = batch_norm(x, bn, training, update=not rerun, shard=shard)
         x = F.leaky_relu(x, 0.1)
         if training and self.dropout > 0:
             if generator is None:
@@ -108,14 +146,15 @@ class ConvBNLeaky(nn.Module):
                 generator.set_state(memo["rng"])
             elif memo is not None:
                 memo["rng"] = generator.get_state()
-            x = dropout(x, self.dropout, generator)
+            x = dropout(x, self.dropout, generator, shard)
         if memo is not None:
             memo["ran"] = True
         return x
 
 
-def remat_block(block, x, dtype=torch.float32, generator=None):
-    """``block(x, dtype, generator)`` (a `ConvBNLeaky`) rematerialized
+def remat_block(block, x, dtype=torch.float32, generator=None, shard=None):
+    """``block(x, dtype, generator, shard=shard)`` (a `ConvBNLeaky`)
+    rematerialized
     (``--remat``, JAX COMPAT #26): under `torch.utils.checkpoint` its
     activations are not kept for the backward, which runs the block
     again.  As flax's lifted ``nn.remat``, the second run replays the
@@ -123,7 +162,7 @@ def remat_block(block, x, dtype=torch.float32, generator=None):
     them (the block's ``memo``), so the loss, the gradients, the
     buffers and the generator's state are those of the plain block."""
     memo = {}
-    return checkpoint(lambda t: block(t, dtype, generator, memo), x,
+    return checkpoint(lambda t: block(t, dtype, generator, memo, shard), x,
                       use_reentrant=False, preserve_rng_state=False)
 
 

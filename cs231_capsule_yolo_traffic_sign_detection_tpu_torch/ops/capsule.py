@@ -12,9 +12,13 @@ Counterpart of the JAX ops/capsule.py, as plain tensor functions:
 
 The fused CUDA kernel of ops/routing.py computes compute_priors +
 dynamic_routing in one op; these functions are its plain version.
+`node_sharded_routing` is the plain routing over a rank's share of the
+nodes under a mesh's model axis.
 """
 
 import torch
+
+from ..parallel.collectives import enter_shard, leave_shard
 
 SQUASH_EPS = 1e-12
 
@@ -70,3 +74,33 @@ def routed_single_capsule(x, route_weights):
 def capsule_norm(caps, dim=-1):
     """Capsule length |v|_2, the class score."""
     return torch.sqrt((caps * caps).sum(dim=dim))
+
+
+def node_sharded_routing(x, w_shard, shard, n_iter=3):
+    """`dynamic_routing` of `compute_priors` (or, for one output capsule,
+    `routed_single_capsule`) with the nodes split over a mesh's model
+    axis (JAX `_shard_routing`: the route weights sharded on axis 0).
+
+    x (B, N, in_C), replicated over ``shard.group``; w_shard (N_s, K,
+    in_C, D), this rank's nodes [shard.lo, shard.hi).  Each rank takes
+    the votes of its nodes; the weighted node sum s of every iteration is
+    all-reduced over the group (`leave_shard`), while the logits stay
+    local, their softmax running over the capsules.  x and each
+    iteration's v enter the sharded region through `enter_shard`, so
+    their gradients are the sums of the ranks' parts.  Returns (B, K, D),
+    replicated."""
+    x = enter_shard(x, shard.group)[:, shard.lo:shard.hi]
+    if w_shard.shape[1] == 1:
+        return squash(leave_shard(
+            torch.einsum("bni,nkio->bko", x, w_shard), shard.group))
+    priors = compute_priors(x, w_shard)
+    logits = priors.new_zeros(priors.shape[:3] + (1,))
+    for it in range(n_iter):
+        probs = torch.softmax(logits, dim=2)
+        s = leave_shard((probs * priors).sum(dim=1, keepdim=True),
+                        shard.group)
+        outputs = squash(s)
+        if it < n_iter - 1:
+            logits = logits + (priors * enter_shard(
+                outputs, shard.group)).sum(dim=-1, keepdim=True)
+    return outputs[:, 0]

@@ -27,6 +27,13 @@ frames, the JAX function's contract.
 darkcapsule has no predict function, as in the reference (JAX
 predict.py's registry): the CLI loads its test set and writes an empty
 metric file.
+
+Under a mesh (``mesh=``, parallel/; JAX predict.py:72-111) each data
+rank serves its rows of every batch (the detector's K2 and K1, the
+classifier's K3) on its device, and the outputs are all-gathered in row
+order, so every rank holds the single-device result; a batch the data
+axis does not divide is served whole on every rank.  The fused
+``device_crop`` path is not split: every rank runs all of it.
 """
 
 import itertools
@@ -44,6 +51,7 @@ from .ops.boxes import combine_y_hat, y_to_boxes_vec
 from .ops.crop import frame_crops
 from .ops.input_stage import darknet_serving_apply, prepare_serving
 from .ops.preprocess import preprocess_images
+from .parallel import mesh as par
 from .train import checkpoint as ckpt
 
 
@@ -52,7 +60,8 @@ def _restore(model, params, model_dir, restore_file):
     the same file under ``model_dir + str(train_frac)`` where training
     writes it (strict load), in eval mode on the CPU."""
     path = ckpt.checkpoint_path(model_dir, restore_file)
-    print("Restoring parameters from {}".format(path))
+    if par.is_primary():
+        print("Restoring parameters from {}".format(path))
     raw = ckpt.load_checkpoint(
         path, fallback_dirs=[model_dir + str(params.get("train_frac", 1))])
     model.load_state_dict(raw["state_dict"], strict=True)
@@ -120,17 +129,19 @@ def restore_classifier(params, model_dir, restore_file, device="cuda"):
     return CLASSIFIERS[params.model](params, model_dir, restore_file, device)
 
 
-def _serve_batches(det, images, params, dev):
+def _serve_batches(det, images, params, dev, mesh=None):
     """The detector over ``images`` in batches of ``params.batch_size``:
     yields each batch's input on the device (the port's resize, 0-255
-    uncentered) and its f32 grid.
+    uncentered) and its f32 grid; under ``mesh``, of this rank's rows of
+    the batch (`parallel.mesh.batch_rows`).
 
     ``params.compute_dtype`` float32 / bfloat16: the BN-folded serving
     forward (K2 for block 1, K1 at the other four pools on a card).
     int8 (JAX predict.py:153-171): BN folded, weights quantized and the
     18 activation scales calibrated on the FIRST batch, then the
     int8-resident chain (ops/quant.py: im2col and s8 x s8 -> s32
-    products, int8 pools; neither K1 nor K2 runs)."""
+    products, int8 pools; neither K1 nor K2 runs); under a mesh every
+    rank calibrates on the whole first batch."""
     dtype = compute_dtype(params.get("compute_dtype", "float32"))
     nb, nc = int(params.n_boxes), int(params.n_classes)
     size, bs = int(params.darknet_input), int(params.batch_size)
@@ -138,20 +149,24 @@ def _serve_batches(det, images, params, dev):
     p = None if dtype == torch.int8 else prepare_serving(sd, dtype)
     q = None
     for i in range(0, len(images), bs):
-        xb = preprocess_images(images[i:i + bs], size, dev)
+        n = len(images[i:i + bs])
+        a, b = (0, n) if mesh is None else par.batch_rows(n, mesh)
+        xb = preprocess_images(images[i + a:i + b], size, dev)
         if p is not None:
             yb = darknet_serving_apply(p, xb, n_boxes=nb, n_classes=nc,
                                        dtype=dtype)
         else:
-            if q is None:   # static int8: calibrated once, on this batch
-                q = quant.quantize_darknet(sd, x_cal=xb)
+            if q is None:   # static int8: calibrated once, on the whole batch
+                x_cal = xb if (a, b) == (0, n) else preprocess_images(
+                    images[i:i + bs], size, dev)
+                q = quant.quantize_darknet(sd, x_cal=x_cal)
             yb = quant.darknet_int8_resident_apply(q, xb, n_boxes=nb,
                                                    n_classes=nc)
         yield xb, yb
 
 
 def dark_detect(images, model_dir, params, restore_file, device="cuda",
-                conf_th=0.5, use_nms=False, crops=False):
+                conf_th=0.5, use_nms=False, crops=False, mesh=None):
     """Darknet detection without drawing: the y_hat grid and the boxes.
 
     images: uint8 (H, W, 3) BGR frames, fed uncentered (0-255) as the
@@ -163,17 +178,21 @@ def dark_detect(images, model_dir, params, restore_file, device="cuda",
     with boxes in each image's own frame; with ``crops``, returns
     (y_hat, crops, image_indices, boxes_xy) instead, the crops uint8
     (n_boxes, capsule_input, capsule_input, 3) cut from the frames
-    (`ops.crop.frame_crops`).
+    (`ops.crop.frame_crops`).  Under ``mesh`` each rank serves its rows
+    and the grid is gathered (module docstring).
     """
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device if mesh else device)
     model = restore_darknet(params, model_dir, restore_file).to(dev)
     nb, nc = int(params.n_boxes), int(params.n_classes)
-    size = int(params.darknet_input)
+    size, bs = int(params.darknet_input), int(params.batch_size)
     image_hw = np.array([im.shape[0:2] for im in images])
 
     with torch.inference_mode():
-        y_hat = torch.cat([yb for _, yb in _serve_batches(
-            model, images, params, dev)])
+        y_hat = par.gather_batches(
+            [yb for _, yb in _serve_batches(model, images, params, dev,
+                                            mesh)],
+            [len(images[i:i + bs]) for i in range(0, len(images), bs)],
+            mesh)
         decoded = decode_ops.decode_grid(
             y_hat, n_classes=nc, n_boxes=nb, img_size=size, conf_th=conf_th)
         if use_nms:
@@ -191,17 +210,18 @@ def dark_detect(images, model_dir, params, restore_file, device="cuda",
 
 
 def dark_pred(images, model_dir, params, restore_file, is_end=True,
-              conf_th=0.5, y=None, use_nms=False, device="cuda"):
+              conf_th=0.5, y=None, use_nms=False, device="cuda", mesh=None):
     """Darknet detection inference, the JAX ``dark_pred`` contract
     (predict.py:114-222): `dark_detect`, then with ``is_end`` the frames
     annotated (`viz.draw_boxes_vec`: predictions green with their class
     names, and with ``y`` the ground truth's boxes red).  Returns
       is_end:  (y_hat grid, annotated frames)
       else:    (y_hat grid, crops, image_indices, boxes_xy).
+    ``mesh``: see `dark_detect`.
     """
     out = dark_detect(images, model_dir, params, restore_file,
                       device=device, conf_th=conf_th, use_nms=use_nms,
-                      crops=not is_end)
+                      crops=not is_end, mesh=mesh)
     if not is_end:
         return out
     y_hat, (image_indices, boxes_xy, classes) = out
@@ -216,30 +236,36 @@ def dark_pred(images, model_dir, params, restore_file, is_end=True,
     return y_hat, output_images
 
 
-def class_pred(x, model_dir, params, restore_file, device="cuda"):
+def class_pred(x, model_dir, params, restore_file, device="cuda",
+               mesh=None):
     """Classifier inference: scores (N, n_classes) f32 and argmax classes.
 
     x: centered crops (N, 32, 32, 3), run in batches of
-    ``params.batch_size`` through the classifier ``params.model`` names.
-    Zero crops give empty arrays without a restore.
+    ``params.batch_size`` through the classifier ``params.model`` names
+    (under ``mesh``, each rank its rows of each batch, gathered).  Zero
+    crops give empty arrays without a restore.
     """
     x = np.asarray(x, np.float32)
     if x.shape[0] == 0:  # zero crops from an upstream empty detection
         y_hat = np.zeros((0, params.n_classes), np.float32)
         return y_hat, np.zeros((0,), np.int64)
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device if mesh else device)
     model = restore_classifier(params, model_dir, restore_file, dev).to(dev)
     bs = int(params.batch_size)
+    batches = [torch.from_numpy(x[i:i + bs]) for i in range(0, x.shape[0], bs)]
     with torch.inference_mode():
-        y_hat = torch.cat([model(torch.from_numpy(x[i:i + bs]).to(dev))
-                           for i in range(0, x.shape[0], bs)])
+        y_hat = par.gather_batches(
+            [model(xb.to(dev) if mesh is None
+                   else par.place_batch((xb,), mesh)[0]) for xb in batches],
+            [xb.shape[0] for xb in batches], mesh)
     y_hat = y_hat.cpu().numpy()
     return y_hat, np.argmax(y_hat, axis=1)
 
 
 def dark_class_detect(images, dark_model_dir, dark_params,
                       class_model_dir, class_params, restore_file,
-                      device="cuda", device_crop=False, max_crops=16):
+                      device="cuda", device_crop=False, max_crops=16,
+                      mesh=None):
     """Two-stage detect-then-classify pipeline, without drawing.
 
     The detector's checkpoint comes from ``dark_model_dir``, the
@@ -252,18 +278,21 @@ def dark_class_detect(images, dark_model_dir, dark_params,
     batch (`_dark_class_pred_fused`, its deviations there).  Returns the
     combined grid (`combine_y_hat`, float64) and the detections
     (image_indices, boxes_xy in each frame's pixels, the classifier's
-    argmax classes).
+    argmax classes).  ``mesh`` splits the host path's detector and
+    classifier batches (`dark_detect`, `class_pred`); the fused path runs
+    whole on the rank's device.
     """
     if device_crop:
         return _dark_class_pred_fused(
             images, dark_model_dir, dark_params, class_model_dir,
-            class_params, restore_file, device=device, max_crops=max_crops)
+            class_params, restore_file,
+            device=mesh.device if mesh else device, max_crops=max_crops)
     dark_y_hat, crops, image_indices, boxes_xy = dark_detect(
         images, dark_model_dir, dark_params, restore_file, device=device,
-        crops=True)
+        crops=True, mesh=mesh)
     class_y_hat, classes = class_pred(center_rgb(crops), class_model_dir,
                                       class_params, restore_file,
-                                      device=device)
+                                      device=device, mesh=mesh)
     y_hat = combine_y_hat(images, dark_y_hat, class_y_hat, image_indices,
                           boxes_xy, dark_params)
     return y_hat, (image_indices, boxes_xy, classes)
@@ -271,7 +300,7 @@ def dark_class_detect(images, dark_model_dir, dark_params,
 
 def dark_class_pred(images, dark_model_dir, dark_params, class_model_dir,
                     class_params, restore_file, device="cuda",
-                    device_crop=False, max_crops=16):
+                    device_crop=False, max_crops=16, mesh=None):
     """The two-stage pipeline with the JAX ``dark_class_pred`` contract
     (predict.py:225-272): `dark_class_detect`, then the frames annotated
     with the boxes and the classifier's class names, on both the host and
@@ -279,7 +308,7 @@ def dark_class_pred(images, dark_model_dir, dark_params, class_model_dir,
     y_hat, (image_indices, boxes_xy, classes) = dark_class_detect(
         images, dark_model_dir, dark_params, class_model_dir, class_params,
         restore_file, device=device, device_crop=device_crop,
-        max_crops=max_crops)
+        max_crops=max_crops, mesh=mesh)
     output_images, _ = viz.draw_boxes_vec(images, image_indices, boxes_xy,
                                           classes)
     return y_hat, output_images

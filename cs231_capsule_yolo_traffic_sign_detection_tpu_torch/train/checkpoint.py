@@ -8,11 +8,14 @@ schedule's state, as the JAX driver does, and writes into
 ``model_dir + str(train_frac)`` (no separator, a reference quirk);
 `load_checkpoint` falls back to that directory when the bare one has no
 checkpoint (JAX train/checkpoint.py:133-152).  The JAX package's
-msgpack checkpoints are not read here.
+msgpack checkpoints are not read here.  `AsyncCheckpointer` writes them
+on a worker thread (``--async_ckpt``).
 """
 
 import os
+import queue
 import shutil
+import threading
 
 import torch
 
@@ -26,6 +29,78 @@ def save_checkpoint(state, is_best, checkpoint_dir):
     os.replace(tmp, path)
     if is_best:
         shutil.copyfile(path, os.path.join(checkpoint_dir, "best.ckpt"))
+
+
+def snapshot(obj):
+    """A copy of ``obj`` (nested dicts, lists and tuples of tensors and
+    plain values) whose tensors are clones on their own devices: the
+    optimizer updates the live parameters and moments in place, so a
+    save that runs later must not read them.  The clones are queued on
+    the device's stream, so taking them waits for nothing."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().clone()
+    if isinstance(obj, dict):
+        return type(obj)((k, snapshot(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(snapshot(v) for v in obj)
+    return obj
+
+
+class AsyncCheckpointer:
+    """Background checkpoint writer (``--async_ckpt``; counterpart of the
+    JAX `AsyncCheckpointer`, train/checkpoint.py:59).
+
+    `save` snapshots the state on its device (`snapshot`) and queues it;
+    one worker thread makes the same `save_checkpoint` calls in order
+    (the copy to the host, ``torch.save`` and the write), so the
+    last/best files are those of the synchronous path.  At most
+    ``MAX_BACKLOG`` saves wait: past that `save` blocks.  A worker's
+    error surfaces at the next `save` or at `flush`, which drains the
+    queue, stops the worker and is terminal (one writer per run; the
+    driver calls it in a ``finally``)."""
+
+    MAX_BACKLOG = 2
+
+    def __init__(self):
+        self._q = queue.Queue(maxsize=self.MAX_BACKLOG)
+        self._err = None
+        self._closed = False
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:  # shutdown sentinel from flush()
+                    return
+                save_checkpoint(*item)
+            except Exception as e:  # surfaced by save() or flush()
+                if self._err is None:
+                    self._err = e
+            finally:
+                self._q.task_done()
+
+    def save(self, state, is_best, checkpoint_dir):
+        if self._closed:
+            raise RuntimeError("AsyncCheckpointer used after flush()")
+        self._raise_pending()
+        self._q.put((snapshot(state), is_best, checkpoint_dir))
+
+    def flush(self):
+        """Write every queued save, stop the worker and re-raise its first
+        error."""
+        if not self._closed:
+            self._closed = True
+            self._q.put(None)
+            self._q.join()
+            self._thread.join()
+        self._raise_pending()
+
+    def _raise_pending(self):
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
 
 
 def checkpoint_path(model_dir, restore_file):

@@ -5,11 +5,40 @@ parity: main.py:176-177, 197-199 — scalar names train_loss / eval_loss /
 train_metric / eval_metric via tensorboardX's SummaryWriter logging to
 `runs/`.  When tensorboardX is unavailable (the card's machine has
 none), the same scalars go to runs/<time>/scalars.jsonl only.
+`BatchCounter` is the per-epoch progress the JAX driver shows with a
+tqdm bar (train/driver.py:668); the card's machine has no tqdm.
 """
 
 import json
 import os
+import sys
 import time
+
+
+class BatchCounter:
+    """A train epoch's batch counter on stderr: ``<desc> i/n`` rewritten
+    in place on a terminal, and one closing line with the count and the
+    epoch's wall.  It counts batches handed to the device; it reads
+    nothing back from it."""
+
+    def __init__(self, total, desc="train"):
+        self.total, self.desc, self.n = int(total), desc, 0
+        self.stream = sys.stderr
+        self._live = self.stream.isatty()
+        self._t0 = time.perf_counter()
+
+    def update(self, k=1):
+        self.n += k
+        if self._live:
+            self.stream.write(f"\r{self.desc} {self.n}/{self.total}")
+            self.stream.flush()
+
+    def close(self):
+        wall = time.perf_counter() - self._t0
+        self.stream.write(("\r" if self._live else "")
+                          + f"{self.desc} {self.n}/{self.total} batches, "
+                          f"{wall:.2f} s\n")
+        self.stream.flush()
 
 
 class ScalarWriter:

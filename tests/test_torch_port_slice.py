@@ -190,12 +190,15 @@ def test_import_leaves_jax_out():
 
 def test_no_file_of_the_port_imports_jax():
     banned = ("jax", "jaxlib", "flax", "cv2", "matplotlib", "sklearn",
-              "cs231_capsule_yolo_traffic_sign_detection_tpu")
+              "tqdm", "cs231_capsule_yolo_traffic_sign_detection_tpu")
     # the package and what runs on the card's machine, which has no JAX,
-    # cv2, matplotlib or sklearn
+    # cv2, matplotlib, sklearn or tqdm (and the mesh tests' rank bodies,
+    # which spawned ranks import alone); tqdm by name, as torch itself
+    # imports it where it is installed
     files = list(PORT.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "k2_turns.py",
-        REPO / "tests" / "test_torch_port_cuda.py"]
+        REPO / "mesh_scaling.py", REPO / "tests" / "test_torch_port_cuda.py",
+        REPO / "tests" / "torch_port_mesh_ranks.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
