@@ -5,9 +5,9 @@
 
 Run from the repository root on a machine with a card and nvcc.  Phases
 (any failure ends the run with a non-zero exit; nothing is caught; each
-path of phases 5, 8, 11, 13, 15-17, 18-20, 21-23 and 25-27 runs with all four
-kernels' launch counts set to 0 just before it, and is checked on all
-four just after):
+path of phases 5, 8, 11, 13, 15-17, 18-20, 21-23, 25-27 and 32 runs with
+all four kernels' launch counts set to 0 just before it, and is checked
+on all four just after):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the kernels (csrc/*.cu -> build/kernels/) and print the time;
@@ -210,10 +210,34 @@ four just after):
 31. --async_ckpt --ckpt_every 2 on 3 darknet_r epochs (cuDNN
    deterministic): the same files with the same tensors as the
    synchronous run; both walls a epoch.
-Phases 29-31 print their walls.
+32. --scan_epoch, each train and eval epoch as replays of captured CUDA
+   graphs (one a distinct batch size), against the per-batch loop:
+   capsule f32 through `train_and_evaluate`, on against off (last.ckpt,
+   its optimizer in the reference format, and the losses equal to the
+   bit; K3 and K4 counted); then each model at its params.json width in
+   f32 and bf16 (capsule and cnn at batch 64 over 2000 crops, 16
+   batches of 63 and 16 of 62, two graphs; darknet_r, darknet_d at 448
+   px and darkcapsule at 224 px, batch 32 over 128 scenes): 2 train and
+   eval epochs captured and looped, cuDNN deterministic, with every
+   batch's loss, the outputs, parameters, BN buffers, Adam state and
+   generator equal to the bit (or within the loop's own band where it
+   differs from itself); then, cuDNN as it runs by default, the capture's
+   seconds, SCAN_TURNS turns of a train and an eval epoch each way
+   (median, spread, ms a step; the port's `profiling.StepTimer`), busy
+   share (a train epoch under `profiling.trace`), an epoch's
+   transient peak memory and the graphs' pool, and whether the captured
+   epoch is no slower than the loop beyond the loop's spread (what
+   `driver.SCAN_EPOCH_AUTO_ON_CARD` rests on).  In the capsule runs the
+   profile of a captured train epoch counts one K3 and one K4 kernel a
+   replayed batch, as the wrappers' counts do; bf16 capsule's eval
+   replay after train replays equals an eager forward on the current
+   route weights; darknet_r f32 with --remat (dropout 0.5, 7 replays)
+   and capsule f32 on a one-rank NCCL mesh equal the loop to the bit.
+Phases 29-32 print their walls.
 
 The kernels line's K1 and K2 launches count phases 5, 18, 25 and 30
-(f32), K3's phases 8, 26 and 30, K4's phases 11, 27 and 30.  The line
+(f32), K3's phases 8, 26, 30 and 32 (its f32 captured capsule runs), K4's
+phases 11, 27, 30 and 32.  The line
 before the last is the JSON ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -236,7 +260,7 @@ import torch.nn.functional as F
 
 # the port sits beside this script; alone, the script stops here
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import (
-    Params, __main__ as cli, export, losses, predict, viz)
+    Params, __main__ as cli, export, losses, predict, profiling, viz)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import (
     loader, stream as data_stream)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
@@ -289,6 +313,13 @@ TRAIN_EPOCHS, TRAIN_CROPS, EVAL_CROPS = 2, 512, 128
 # the detector's training slice: 2 epochs over the JAX fallback's 64/16
 # scenes at 448 px (loader._SYNTH_FULL["detection"])
 DARK_TRAIN_SCENES, DARK_EVAL_SCENES = 64, 16
+# phase 32 (--scan_epoch): each model's train and eval scenes or crops
+# (the classifiers' 2000 crops at batch 64: 16 batches of 63 and 16 of
+# 62, two graphs), turns of the timing
+SCAN_CASES = (("capsule", 2000, 250), ("cnn", 2000, 250),
+              ("darknet_r", 128, 32), ("darknet_d", 128, 32),
+              ("darkcapsule", 128, 32))
+SCAN_TURNS = 3
 # the fused two-stage path's static cap: boxes classified per frame
 MAX_CROPS = 16
 # phase 21: the GTSDB-style data dir holds this many of phase 5's scenes
@@ -3158,6 +3189,366 @@ def run_async_ckpt(root):
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block (phases 13 and
+    28-32 hold pairs of runs equal to the bit under them)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def scan_params(name, dtype, **over):
+    """Phase 32's params: ``name``'s params.json as the CLI's train mode
+    sets it (phases 11, 13, 15, 19, 20), in ``dtype``."""
+    if name == "capsule":
+        p = Params(os.path.join(HERE, "experiments", "capsule",
+                                "params.json"), model="capsule",
+                   n_epochs=TRAIN_EPOCHS, lr_runtime=1e-3, recon=True,
+                   recon_coef=5e-4, eval_every=1, train_frac=1,
+                   summary=False, compute_dtype=dtype)
+    else:
+        p = {"cnn": cnn_params, "darknet_r": dark_train_params,
+             "darknet_d": darknet_d_params,
+             "darkcapsule": darkcapsule_params}[name](dtype)
+    p.__dict__.update(over)
+    return p
+
+
+def scan_trainer(p, scan, mesh=None):
+    """A Trainer of ``p`` from seed 0 on the card, --scan_epoch on or
+    off."""
+    p.scan_epoch = "on" if scan else "off"
+    t = driver.Trainer(p, seed=0, device="cuda", verbose=False, mesh=mesh)
+    require(t.scan_epoch == scan, f"scan_epoch {t.scan_epoch} for {scan}")
+    return t
+
+
+def scan_run(t, data, n_epochs=TRAIN_EPOCHS):
+    """``n_epochs`` train and eval epochs of ``t`` at lr 1e-3 from
+    np.random seed 0, metric off; returns each epoch's per-batch losses
+    and outputs, and the state after: parameters and BN buffers, Adam's
+    state, the dropout generator's state."""
+    x, y, xe, ye = data
+    np.random.seed(0)
+    epochs = []
+    with contextlib.redirect_stdout(io.StringIO()):  # darknet_d's avg iou
+        for _ in range(n_epochs):
+            t.train_epoch(x, y, 1e-3, metric_on=False)
+            epochs.append((t.last_losses.clone(), torch.cat(t.last_outputs)))
+            t.eval_epoch(xe, ye, metric_on=False)
+            epochs.append((t.last_losses.clone(), torch.cat(t.last_outputs)))
+    torch.cuda.synchronize()
+    params = [q for g in t.opt.param_groups for q in g["params"]]
+    state = {"model": {k: v.detach().clone()
+                       for k, v in t.model.state_dict().items()},
+             "adam": [{k: v.clone() for k, v in t.opt.state[q].items()}
+                      for q in params],
+             "rng": None if t.generator is None else t.generator.get_state()}
+    return epochs, state
+
+
+def tree_diff(a, b):
+    """The largest |a - b| over two nests of tensors (0.0: equal to the
+    bit; inf where shapes, types or other values differ)."""
+    if isinstance(a, torch.Tensor):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return float("inf")
+        if torch.equal(a, b):
+            return 0.0
+        if not a.is_floating_point():
+            return float("inf")
+        return (a.double() - b.double()).abs().max().item()
+    if isinstance(a, dict):
+        return max([tree_diff(a[k], b[k]) for k in a] + [0.0])
+    if isinstance(a, (list, tuple)):
+        return max([tree_diff(u, v) for u, v in zip(a, b)] + [0.0])
+    return 0.0 if a == b else float("inf")
+
+
+def check_scan_pair(label, p, data, mesh=None, launches=None):
+    """Phase 32's equality: 2 train and eval epochs of ``p`` through the
+    loop and captured (on ``mesh`` when given), cuDNN deterministic; the
+    per-batch losses and outputs of every epoch and the state after must
+    be equal to the bit, or, where the loop differs from itself, within
+    that band.  ``launches``: the counts the captured run must show.
+    Returns the captured Trainer and its counts."""
+    with cudnn_deterministic():
+        loop = scan_trainer(p, False)
+        want = scan_run(loop, data)
+        del loop
+        scan = scan_trainer(p, True, mesh)
+        reset_launches()
+        got = scan_run(scan, data)
+        counts = read_launches()
+        diff = tree_diff(got, want)
+        band = 0.0
+        if diff:
+            again = scan_trainer(p, False)
+            band = tree_diff(scan_run(again, data), want)
+            del again
+    require(diff == 0.0 or diff <= band < float("inf"),
+            f"{label}: captured epochs differ from the loop's by {diff}, "
+            f"the loop from itself by {band}")
+    if launches is not None:
+        require(counts == dict({k: 0 for k in counts}, **launches),
+                f"{label}: launches {counts}, want {launches}")
+    n = [len(e[0]) for e in got[0][:2]]
+    print(f"[scan_epoch] {label}: {TRAIN_EPOCHS} train and eval epochs "
+          f"({n[0]} + {n[1]} batches), captured against the loop: "
+          + ("equal to the bit (losses of every batch, outputs, "
+             "parameters, BN buffers, Adam state, generator)" if not diff
+             else f"largest difference {diff}, within the loop's own "
+             f"{band}") + f"; captured launches {counts}")
+    return scan, counts
+
+
+def kernel_profile(fn, logdir):
+    """Kernel time (ms) and each kernel's count over one ``fn()``, traced
+    by the port's `profiling.trace` into ``logdir``."""
+    with profiling.trace(logdir):
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in profiling.trace.last.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not e.key.startswith("Optimizer.")]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3,
+            {e.key: e.count for e in kernels})
+
+
+def time_scan_case(label, p, data, scan, root, k3k4=False):
+    """Phase 32's timing of one model and dtype, cuDNN as it runs by
+    default: a loop Trainer and the captured one (``scan``, its graphs
+    captured anew here); the capture's seconds, then SCAN_TURNS turns of
+    a train and an eval epoch each way (alternating which goes first;
+    `profiling.StepTimer`s), the transient peak memory of an epoch each
+    way and the captured graphs' pool, and one train epoch each way
+    traced under ``root`` (`profiling.trace`; busy share).  ``k3k4``: the
+    profile of the captured train epoch must count one K3 and one K4 a
+    batch, as the launch counts do.  Returns whether the captured epoch
+    is no slower than the loop beyond the loop's spread."""
+    x, y, xe, ye = data
+    scan.drop_graphs()
+    loop = scan_trainer(p, False)
+
+    def epoch(t, train):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            if train:
+                t.train_epoch(x, y, 1e-3, metric_on=False)
+            else:
+                t.eval_epoch(xe, ye, metric_on=False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    first = {tag: epoch(t, True) + epoch(t, False)
+             for tag, t in (("loop", loop), ("scan", scan))}
+    capture_s = scan._capture.seconds
+    pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) ==
+               tuple(scan._capture.pool)) / 2 ** 30
+    timers = {tag: {kind: profiling.StepTimer(warmup=0)
+                    for kind in ("train", "eval")} for tag in ("loop", "scan")}
+    mem = {}
+    for turn in range(SCAN_TURNS):
+        order = (("loop", loop), ("scan", scan))
+        for tag, t in (order if turn % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for kind in ("train", "eval"):
+                with timers[tag][kind]:
+                    epoch(t, kind == "train")
+            if turn == 0:  # the epoch's transient peak, above what stays
+                mem[tag] = (torch.cuda.max_memory_allocated()
+                            - base) / 2 ** 30
+    walls = {tag: {k: v.times for k, v in w.items()}
+             for tag, w in timers.items()}
+    n_train = -(-len(y) // p.batch_size)
+    med = {tag: {k: float(np.median(v)) for k, v in w.items()}
+           for tag, w in walls.items()}
+    busy = {}
+    for tag, t in (("loop", loop), ("scan", scan)):
+        reset_launches()
+        ms, counts = kernel_profile(lambda: epoch(t, True), os.path.join(
+            root, "trace", label.replace(" ", "_") + "_" + tag))
+        launches = read_launches()
+        busy[tag] = ms / (med[tag]["train"] * 1e3)
+        if k3k4 and tag == "scan":
+            k3 = sum(c for k, c in counts.items()
+                     if "routing_kernel" in k and "bwd" not in k)
+            k4 = sum(c for k, c in counts.items() if "bwd_prep_kernel" in k)
+            require((k3, k4) == (n_train, n_train) == (
+                launches["routing"], launches["routing_bwd"]),
+                f"{label}: the profile of a captured train epoch counts "
+                f"K3 {k3}, K4 {k4}, the wrappers {launches}, for "
+                f"{n_train} batches")
+            print(f"[scan_epoch] {label}: a captured train epoch of "
+                  f"{n_train} batches: the profiler counts K3 {k3} and K4 "
+                  f"{k4} kernels inside the replays, the wrappers' counts "
+                  f"{launches['routing']} and {launches['routing_bwd']}")
+    for tag in ("loop", "scan"):
+        w = walls[tag]["train"]
+        print(f"[scan_epoch] {label} {tag}: train epoch median "
+              f"{med[tag]['train'] * 1e3:.3f} ms (spread "
+              f"{(max(w) - min(w)) * 1e3:.3f} over {len(w)} turns), "
+              f"{med[tag]['train'] * 1e3 / n_train:.3f} ms a step over "
+              f"{n_train} steps, busy {busy[tag]:.3f}; eval epoch median "
+              f"{med[tag]['eval'] * 1e3:.3f} ms; first epoch (train + "
+              f"eval) {first[tag]:.3f} s"
+              + (f" incl. {capture_s:.3f} s of capture" if tag == "scan"
+                 else "")
+              + f"; an epoch's transient peak {mem[tag]:.3f} GiB"
+              + (f", graph pool {pool:.3f} GiB" if tag == "scan" else "")
+              + f" ({SMI})")
+    spread = max(walls["loop"]["train"]) - min(walls["loop"]["train"])
+    ok = med["scan"]["train"] <= med["loop"]["train"] + spread
+    print(f"[scan_epoch] {label}: captured/loop train epoch "
+          f"{med['scan']['train'] / med['loop']['train']:.3f}, eval "
+          f"{med['scan']['eval'] / med['loop']['eval']:.3f}; captured no "
+          f"slower than the loop beyond its spread: {ok}")
+    del loop
+    return ok
+
+
+def run_scan_epochs(root):
+    """Phase 32: --scan_epoch, each train and eval epoch as replays of
+    captured CUDA graphs, against the per-batch loop.  Returns the
+    counted launches of its K3/K4 paths (the f32 captured capsule runs)."""
+    t_phase = time.perf_counter()
+    counted = {k: 0 for k in kernel_wrappers()}
+    # through the entry point: capsule train_and_evaluate, on against off
+    ckpts = {}
+    for scan in ("off", "on"):
+        p = scan_params("capsule", "float32", scan_epoch=scan)
+        model_dir = os.path.join(root, "capsule_" + scan)
+        os.makedirs(model_dir, exist_ok=True)
+        np.random.seed(0)
+        with cudnn_deterministic(), contextlib.redirect_stdout(
+                io.StringIO()):
+            reset_launches()
+            driver.train_and_evaluate(p, os.path.join(root, "nodata"),
+                                      model_dir, seed=0, device="cuda",
+                                      progress=False)
+            torch.cuda.synchronize()
+            launches = read_launches()
+        ckpts[scan] = (ckpt.load_checkpoint(os.path.join(
+            model_dir + "1", "last.ckpt")), np.load(os.path.join(
+                model_dir, "losses_tr.npy")), launches)
+    n_tr, n_ev = -(-TRAIN_CROPS // CAPS_BATCH), -(-EVAL_CROPS // CAPS_BATCH)
+    want = {"routing": (n_tr + n_ev) * TRAIN_EPOCHS,
+            "routing_bwd": n_tr * TRAIN_EPOCHS, "pool_leaky": 0,
+            "input_stage": 0}
+    (a, la, na), (b, lb, nb) = ckpts["off"], ckpts["on"]
+    require(na == nb == want, f"train_and_evaluate launches {na}, {nb}")
+    require(np.array_equal(la, lb) and tree_diff(
+        [a["state_dict"], a["optim_dict"]["state"]],
+        [b["state_dict"], b["optim_dict"]["state"]]) == 0.0
+        and a["optim_dict"]["param_groups"] == b["optim_dict"][
+            "param_groups"],
+        "train_and_evaluate --scan_epoch on: last.ckpt or losses differ")
+    require(isinstance(b["optim_dict"]["param_groups"][0]["lr"], float)
+            and all(st["step"].device.type == "cpu" for st in
+                    b["optim_dict"]["state"].values()),
+            "optim_dict not in the reference format")
+    for k in counted:
+        counted[k] += nb[k]
+    print(f"[scan_epoch] capsule f32 train_and_evaluate ({TRAIN_EPOCHS} "
+          f"epochs of {n_tr} + {n_ev} batches), --scan_epoch on against "
+          f"off: last.ckpt (weights, Adam state in the reference format) "
+          f"and train losses {lb} equal to the bit; launches {nb}")
+
+    verdicts = {}
+    for name, n_train, n_eval in SCAN_CASES:
+        data = loader.synthetic_dataset(name, scan_params(name, "float32"),
+                                        n_train, n_eval)
+        for dtype in ("float32", "bfloat16"):
+            label = f"{name} {dtype}"
+            p = scan_params(name, dtype)
+            launches = None
+            if name == "capsule":
+                tr, ev = (-(-n // CAPS_BATCH) for n in (n_train, n_eval))
+                launches = {"routing": (tr + ev) * TRAIN_EPOCHS,
+                            "routing_bwd": tr * TRAIN_EPOCHS}
+            scan, counts = check_scan_pair(label, p, data,
+                                           launches=launches)
+            if name == "capsule" and dtype == "float32":
+                for k in counted:
+                    counted[k] += counts[k]
+            if name == "capsule" and dtype == "bfloat16":
+                with cudnn_deterministic():
+                    check_bf16_eval(scan, data)
+            verdicts[label] = time_scan_case(label, scan_params(name, dtype),
+                                             data, scan, root,
+                                             k3k4=name == "capsule")
+            del scan
+            torch.cuda.empty_cache()
+        if name == "darknet_r":
+            check_scan_pair("darknet_r f32 --remat",
+                            scan_params(name, "float32", remat=True), data)
+        if name == "capsule":
+            counts = check_scan_mesh(data)
+            for k in counted:
+                counted[k] += counts[k]
+        del data
+    print(f"[scan_epoch] captured no slower than the loop (beyond the "
+          f"loop's spread) for every model and dtype: "
+          f"{all(verdicts.values())} ({sum(verdicts.values())} of "
+          f"{len(verdicts)}); auto on the card is "
+          f"{driver.SCAN_EPOCH_AUTO_ON_CARD}")
+    shutil.rmtree(root)
+    print(f"[scan_epoch] phase 32 wall {time.perf_counter() - t_phase:.1f} s")
+    return counted
+
+
+def check_bf16_eval(scan, data):
+    """Phase 32, bf16 capsule: after the train replays, a captured eval
+    batch equals an eager eval forward of the same crops on the current
+    weights (the bf16 route weights are cast inside the eval graph)."""
+    _, _, xe, ye = data
+    scan.eval_epoch(xe, ye, metric_on=False)
+    got = scan.last_outputs[0].clone()
+    n = got.shape[0]
+    scan.model.eval()
+    with torch.no_grad():
+        x_dev = torch.from_numpy(np.asarray(xe[:n], np.float32)).cuda()
+        y_dev = torch.from_numpy(np.asarray(ye[:n], np.int64)).cuda()
+        want = steps.eval_step(scan.model, x_dev, y_dev, scan.loss_cfg,
+                               "capsule")[1]
+    require(torch.equal(got, want), "bf16 capsule: a captured eval batch "
+            f"differs from the eager forward by "
+            f"{(got - want).abs().max().item()}")
+    print("[scan_epoch] capsule bfloat16: after the train replays a "
+          "captured eval batch equals the eager forward on the current "
+          "route weights, to the bit")
+
+
+def check_scan_mesh(data):
+    """Phase 32 on a one-rank NCCL mesh (make_mesh(n_data=1), as phase
+    30): the captured capsule f32 epochs, the gradient all-reduce inside
+    the train graph, against the plain Trainer's loop.  Returns the
+    captured run's launches."""
+    port = par._free_port()
+    par.initialize_distributed(f"127.0.0.1:{port}", 1, 0, "nccl")
+    try:
+        mesh = par.make_mesh(n_data=1, device="cuda:0")
+        tr, ev = (-(-len(d) // CAPS_BATCH) for d in (data[1], data[3]))
+        scan, counts = check_scan_pair(
+            "capsule f32 on a one-rank NCCL mesh", scan_params(
+                "capsule", "float32"), data, mesh=mesh,
+            launches={"routing": (tr + ev) * TRAIN_EPOCHS,
+                      "routing_bwd": tr * TRAIN_EPOCHS})
+        del scan
+    finally:
+        torch.distributed.destroy_process_group()
+    return counts
+
+
 def main():
     global SMI
     # phase 1
@@ -3326,6 +3717,10 @@ def main():
                              crops, labels, dx, dy)
     run_async_ckpt(os.path.join(HERE, "build", "chip_smoke", "async_ckpt"))
 
+    # phase 32: --scan_epoch
+    scan_launches = run_scan_epochs(os.path.join(HERE, "build", "chip_smoke",
+                                                 "scan_epoch"))
+
     # K1 and K2 on the main paths: darknet_r's (phase 5) and darknet_d's
     # (phase 18) serving, the detector artifacts' (phase 25) and mesh
     # serving (phase 30, f32); K3 on the capsule slice (phase 8), its
@@ -3337,9 +3732,11 @@ def main():
             runs[k] += d_launches[dtype][k] + art_launches[dtype][k]
     for k in ("pool_leaky", "input_stage"):
         slice_launches["float32"][k] += mesh_launches[k]
-    caps_launches["routing"] += caps_art["routing"] + mesh_launches["routing"]
+    caps_launches["routing"] += (caps_art["routing"] + mesh_launches["routing"]
+                                 + scan_launches["routing"])
     train_launches["routing_bwd"] += (routing_launches["routing_bwd"]
-                                      + mesh_launches["routing_bwd"])
+                                      + mesh_launches["routing_bwd"]
+                                      + scan_launches["routing_bwd"])
 
     pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu_torch"
     jax_pkg = "cs231_capsule_yolo_traffic_sign_detection_tpu"

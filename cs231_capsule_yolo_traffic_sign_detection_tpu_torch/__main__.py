@@ -19,7 +19,7 @@ two-stage darknet_r|darknet_d --combine capsule|cnn.
         [--eval_every N] [--train_frac F] [--no_metric] \\
         [--restore last|best] [--device cuda|cpu] [--model_dir DIR] \\
         [--routing auto|xla|pallas] [--remat] [--stream] \\
-        [--async_ckpt] [--ckpt_every N]
+        [--async_ckpt] [--ckpt_every N] [--scan_epoch [auto|on|off]]
     ... [--mesh auto|off|data=N[,model=M]] \\
         [--coordinator HOST:PORT --num_processes P --process_id I]
 
@@ -68,6 +68,13 @@ card, xla for darkcapsule and on the CPU), in predict and training;
 stays on the host, memmapped with ``--npy``), ``--async_ckpt`` writes
 checkpoints on a worker thread and ``--ckpt_every N`` writes ``last``
 every Nth epoch (and on the last; ``best`` whenever it improves).
+``--scan_epoch`` (bare: on) runs each train and eval epoch as replays of
+captured CUDA graphs, one a distinct batch size (`train.steps.
+make_train_epoch`): the per-batch loop's batches and numbers, one
+``replay()`` a batch; with ``--device cpu`` the same epoch body runs
+eagerly.  ``auto``, the default, is off on the CPU and
+``driver.SCAN_EPOCH_AUTO_ON_CARD`` on the card; ``--stream`` and a gloo
+mesh run the loop.
 ``--mesh data=N[,model=M]`` runs N*M ranks (parallel/mesh.py; rank r on
 ``cuda:r`` over NCCL, or on the CPU over gloo with ``--device cpu``):
 data parallel with global-batch BatchNorm, the capsule route weights
@@ -184,6 +191,14 @@ parser.add_argument("--stream", default=False, action="store_true",
 parser.add_argument("--async_ckpt", default=False, action="store_true",
                     help="write checkpoints on a background thread (same "
                     "last/best semantics, flushed at exit)")
+parser.add_argument("--scan_epoch", nargs="?", const="on", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="run each train/eval epoch as replays of captured "
+                    "CUDA graphs, one per distinct batch size (identical "
+                    "batches and numbers to the per-batch loop); auto "
+                    "(default) = off on the CPU, on the card as "
+                    "train/driver.py's SCAN_EPOCH_AUTO_ON_CARD; bare "
+                    "--scan_epoch = on")
 parser.add_argument("--ckpt_every", default=1, type=int,
                     help="save the last checkpoint every N epochs "
                     "(best-on-improvement always saved; default 1 = "
@@ -361,6 +376,7 @@ def load_params(model_dir, args, model):
     params.stream = args.stream
     params.async_ckpt = args.async_ckpt
     params.ckpt_every = args.ckpt_every
+    params.scan_epoch = args.scan_epoch
     if args.dropout >= 0:
         params.dropout = args.dropout
     return params

@@ -109,10 +109,14 @@ class CapsuleRouting(nn.Module):
         place, or moved); with a gradient `RoutedCapsules` casts inside
         the op, so the gradient reaches the f32 weights.  Under
         torch.export the cast is part of the traced program (a traced
-        parameter has no storage to key a copy on)."""
+        parameter has no storage to key a copy on), and under a CUDA
+        graph's capture it is recorded in the graph and not kept: a
+        replay reads the weights as they are then (the train graph's Adam
+        moves them without a version bump: `drop_bf16_copy`)."""
         if not bf16 or (torch.is_grad_enabled() and w.requires_grad):
             return w
-        if torch.compiler.is_exporting():
+        if torch.compiler.is_exporting() or (
+                w.is_cuda and torch.cuda.is_current_stream_capturing()):
             return w.to(torch.bfloat16)
         p = self.route_weights
         key = (p.data_ptr(), p._version, p.device)
@@ -121,6 +125,11 @@ class CapsuleRouting(nn.Module):
                 self._bf16_w = w.to(torch.bfloat16)
             self._bf16_key = key
         return self._bf16_w
+
+    def drop_bf16_copy(self):
+        """Forget the bf16 copy: the weights changed where their version
+        counter does not see it (a CUDA graph's replay)."""
+        self._bf16_key, self._bf16_w = None, None
 
 
 class CapsuleNet(nn.Module):

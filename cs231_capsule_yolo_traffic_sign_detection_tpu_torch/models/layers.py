@@ -73,6 +73,13 @@ def dropout(x, p, generator, shard=None):
     drawn, in x's layout, and x's rows kept: the masks and the
     generator's state are the single-process run's."""
     keep = 1.0 - p
+    return torch.where(dropout_mask(x, keep, generator, shard), x / keep,
+                       0.0)
+
+
+def dropout_mask(x, keep, generator, shard=None):
+    """`dropout`'s mask: True with probability ``keep``, in x's layout;
+    with ``shard`` the global batch's mask drawn, x's rows kept."""
     # in x's memory format: a contiguous (NCHW) mask would turn the
     # result, and every later activation, NCHW
     if shard is None:
@@ -85,7 +92,7 @@ def dropout(x, p, generator, shard=None):
     mask.bernoulli_(keep, generator=generator)
     if shard is not None:
         mask = mask[shard.lo:shard.hi]
-    return torch.where(mask, x / keep, 0.0)
+    return mask
 
 
 class ConvBNLeaky(nn.Module):
@@ -125,7 +132,10 @@ class ConvBNLeaky(nn.Module):
         `remat_block`'s) marks a second run of the same call: the first
         records the generator's state before the dropout draw, the
         second updates no BN buffer and draws the same mask from a copy
-        of that state, so the trainer's generator moves once."""
+        of that state, so the trainer's generator moves once.  Under a
+        CUDA graph's capture the first run keeps its mask for the second
+        instead: a state read at capture is the capture's, while the
+        graph's draws move with the generator at every replay."""
         conv = getattr(self, "conv" + self.suffix)
         bn = getattr(self, "bn" + self.suffix)
         # the mode is the children's: the model registers them, not the block
@@ -141,12 +151,21 @@ class ConvBNLeaky(nn.Module):
                 raise ValueError("ConvBNLeaky: training with dropout draws "
                                  "its masks from a torch.Generator; none "
                                  "was given")
-            if rerun:
-                generator = torch.Generator(device=generator.device)
-                generator.set_state(memo["rng"])
-            elif memo is not None:
-                memo["rng"] = generator.get_state()
-            x = dropout(x, self.dropout, generator, shard)
+            keep = 1.0 - self.dropout
+            if rerun and "mask" in memo:
+                mask = memo["mask"]
+            elif rerun:
+                replay = torch.Generator(device=generator.device)
+                replay.set_state(memo["rng"])
+                mask = dropout_mask(x, keep, replay, shard)
+            elif memo is not None and x.is_cuda and \
+                    torch.cuda.is_current_stream_capturing():
+                mask = memo["mask"] = dropout_mask(x, keep, generator, shard)
+            else:
+                if memo is not None:
+                    memo["rng"] = generator.get_state()
+                mask = dropout_mask(x, keep, generator, shard)
+            x = torch.where(mask, x / keep, 0.0)
         if memo is not None:
             memo["ran"] = True
         return x

@@ -54,7 +54,21 @@ only its rows.  ``--async_ckpt`` writes checkpoints on a worker thread
 (`checkpoint.AsyncCheckpointer`), ``--ckpt_every N`` writes ``last``
 every Nth epoch and on the last (``best`` whenever the metric improves),
 and rank 0 counts each train epoch's batches on stderr
-(`logging_utils.BatchCounter`).  Not ported: --scan_epoch.
+(`logging_utils.BatchCounter`).
+
+``--scan_epoch`` (``params.scan_epoch``: a bool or auto | on | off; JAX
+driver.py:174-211, 332-389) runs each epoch as groups of equal-size
+batches (`_group_splits`: np.array_split's, at most two), each through
+a `steps.make_train_epoch` / `make_eval_epoch` object: on a card one
+captured CUDA graph a group, replayed a batch; on the CPU the same body
+eagerly.  The batches, their order, the dropout stream and the numbers
+are the per-batch loop's.  It needs the resident dataset: with
+``--stream`` and under a gloo mesh (its collectives cannot be captured)
+the loop runs, and an explicit ``on`` says so.  An NCCL mesh is
+captured, its all-reduces inside the graphs.  ``auto`` is off on the CPU
+and `SCAN_EPOCH_AUTO_ON_CARD` on a card.  The graphs are dropped when
+what they read moves: on `Trainer.restore` (the optimizer's state is
+replaced) and when `_resident` replaces a split.
 """
 
 import os
@@ -62,6 +76,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import config
 from ..data import loader as data_loader
@@ -77,7 +92,7 @@ from ..models.darknet import freeze_darknet, load_darknet19_npz
 from ..models.registry import resolve_routing_impl
 from ..parallel import mesh as par
 from ..parallel.collectives import BatchShard
-from . import checkpoint as ckpt
+from . import checkpoint as ckpt, steps
 from .logging_utils import BatchCounter
 from .plateau import ReduceLROnPlateau
 from .steps import eval_step, make_optimizer, train_step
@@ -89,6 +104,10 @@ METRICS = {"cnn": recog_acc, "capsule": recog_acc,
            "darkcapsule": darkcapsule_cell_f1}
 TRAINED_MODELS = tuple(METRICS)
 ROUTE_KEY = "traffic_sign_capsules.route_weights"
+# what --scan_epoch auto is on a card: on where the captured epochs are
+# no slower than the loop for every model and dtype (chip_smoke.py
+# phase 32; PERF.md)
+SCAN_EPOCH_AUTO_ON_CARD = True
 
 
 def _bounds(n, n_batch):
@@ -221,6 +240,34 @@ class Trainer:
         self.prefetch_wait_s = 0.0  # the last epoch's, --stream only
         self.last_avg_iou = 0.0
         self._data = {}
+        setting = params.get("scan_epoch", False)
+        wanted = self._resolve_scan(setting, self.device)
+        gloo = mesh is not None and dist.get_backend(
+            mesh.data_group) == "gloo"
+        self.scan_epoch = wanted and not self.stream and not gloo
+        if wanted and not self.scan_epoch and verbose and \
+                str(setting).lower() != "auto":
+            print("[scan_epoch] ignored: --stream keeps the dataset "
+                  "host-resident, the per-batch streamed loop runs"
+                  if self.stream else
+                  "[scan_epoch] ignored: gloo collectives cannot be "
+                  "captured in a CUDA graph, the per-batch loop runs")
+        self.last_losses = self.last_outputs = None
+        self._epochs = {}      # (train, batch size, batches): steps.Epoch
+        self._capture = None   # their steps.GraphCapture, on a card
+
+    @staticmethod
+    def _resolve_scan(setting, device="cpu"):
+        """A --scan_epoch setting (bool | 'auto' | 'on' | 'off') as a
+        bool: 'auto' is off on the CPU, `SCAN_EPOCH_AUTO_ON_CARD` on a
+        card."""
+        if isinstance(setting, str):
+            s = setting.lower()
+            if s == "auto":
+                return (torch.device(device).type == "cuda"
+                        and SCAN_EPOCH_AUTO_ON_CARD)
+            return s in ("on", "true", "1")
+        return bool(setting)
 
     def _fine_tune(self, fine_tune):
         """The JAX driver's fine-tune branch (driver.py:98-114): the
@@ -242,6 +289,7 @@ class Trainer:
         if key not in self._data:
             for stale in [k for k in self._data if k[0] == tag]:
                 del self._data[stale]
+                self.drop_graphs()
             self._data[key] = (
                 torch.from_numpy(np.asarray(x, np.float32)).to(
                     self.device, self._x_dtype),
@@ -327,19 +375,22 @@ class Trainer:
         all-reduce of the losses and avg_iou sums before it) and the
         model's metric on <= 1000 rows, with the reference's np.random
         use (a choice only when the metric is on and there are more
-        rows); darknet_d prints ``<tag> avg iou``."""
-        has_iou = bool(auxes) and "avg_iou" in auxes[0]
+        rows); darknet_d prints ``<tag> avg iou``.  ``losses`` (n_batch,)
+        and ``auxes`` {key: (n_batch,)} are the batches' in order; the
+        losses and the per-batch outputs stay as ``last_losses`` and
+        ``last_outputs`` (under ``--scan_epoch`` until the group's next
+        epoch)."""
+        self.last_losses, self.last_outputs = losses, y_hats
+        has_iou = "avg_iou" in auxes
         if self.mesh is None:
-            means = [torch.stack(losses).mean()]
+            means = [losses.mean()]
             if has_iou:
-                means.append(torch.stack([a["avg_iou"]
-                                          for a in auxes]).mean())
+                means.append(auxes["avg_iou"].mean())
         else:
-            rows = [torch.stack(losses)]
+            rows = [losses]
             if has_iou:
-                n_obj = torch.stack([a["n_obj"] for a in auxes])
-                rows += [torch.stack([a["avg_iou"] for a in auxes]) * n_obj,
-                         n_obj]
+                n_obj = auxes["n_obj"]
+                rows += [auxes["avg_iou"] * n_obj, n_obj]
             sums = par.all_reduce_rows(torch.stack(rows), self.mesh)
             means = [(sums[0] / self.mesh.n_data).mean()]
             if has_iou:
@@ -371,6 +422,10 @@ class Trainer:
         n_batch = (n + self.params.batch_size - 1) // self.params.batch_size
         perm = np.random.permutation(n)
         self.model.train()
+        if self.scan_epoch:
+            out = self._scan_epoch_run(True, x, y, perm, lr, progress)
+            return self._epoch_metric(*out, np.asarray(y)[perm], metric_on,
+                                      "train")
         losses, auxes, y_hats, n_globals = [], [], [], []
         for xb, yb, n_glob in self._batches("train", x, y, perm, n_batch):
             shard, grad_group = self._shard(n_glob)
@@ -384,14 +439,18 @@ class Trainer:
             n_globals.append(n_glob)
             if progress is not None:
                 progress.update()
-        return self._epoch_metric(losses, auxes, y_hats, n_globals,
-                                  np.asarray(y)[perm], metric_on, "train")
+        return self._epoch_metric(*_stacked(losses, auxes), y_hats,
+                                  n_globals, np.asarray(y)[perm], metric_on,
+                                  "train")
 
     def eval_epoch(self, x, y, metric_on=True):
         """One evaluation epoch; returns (mean batch loss, metric or -1)."""
         n = y.shape[0]
         n_batch = (n + self.params.batch_size - 1) // self.params.batch_size
         self.model.eval()
+        if self.scan_epoch:
+            out = self._scan_epoch_run(False, x, y, np.arange(n))
+            return self._epoch_metric(*out, np.asarray(y), metric_on, "test")
         losses, auxes, y_hats, n_globals = [], [], [], []
         for xb, yb, n_glob in self._batches("eval", x, y, None, n_batch):
             loss, y_hat, aux = eval_step(self.model, xb, yb, self.loss_cfg,
@@ -400,8 +459,68 @@ class Trainer:
             y_hats.append(y_hat)
             auxes.append(self._aux(aux, yb))
             n_globals.append(n_glob)
-        return self._epoch_metric(losses, auxes, y_hats, n_globals,
-                                  np.asarray(y), metric_on, "test")
+        return self._epoch_metric(*_stacked(losses, auxes), y_hats,
+                                  n_globals, np.asarray(y), metric_on, "test")
+
+    # -- --scan_epoch ------------------------------------------------------
+
+    def _epoch(self, train, size, n_batch):
+        """The `steps.Epoch` of a group of ``n_batch`` batches of
+        ``size`` rows, made once and kept (with its graph on a card)."""
+        key = (train, size, n_batch)
+        if key not in self._epochs:
+            if self.device.type == "cuda" and self._capture is None:
+                self._capture = steps.GraphCapture(self.device,
+                                                   [self.generator])
+            if train:
+                shard, group = self._shard(size)
+                self._epochs[key] = steps.make_train_epoch(
+                    self.model, self.opt, self.loss_cfg, self.model_name,
+                    self.generator, shard, group, self._aux, self._capture)
+            else:
+                self._epochs[key] = steps.make_eval_epoch(
+                    self.model, self.loss_cfg, self.model_name, self._aux,
+                    self._capture)
+        return self._epochs[key]
+
+    def _scan_epoch_run(self, train, x, y, order, lr=None, progress=None):
+        """One epoch through the group objects (JAX _scan_epoch_run):
+        the batches of np.array_split(order, n_batch), this rank's rows
+        of each under a mesh, as index tables on the device.  Returns
+        the batches' losses, aux and outputs and their global sizes, in
+        order, for `_epoch_metric`."""
+        n = len(order)
+        n_batch = (n + self.params.batch_size - 1) // self.params.batch_size
+        x_dev, y_dev = self._resident("train" if train else "eval", x, y)
+        losses, auxes, y_hats, n_globals = [], [], [], []
+        for idx in _group_splits(np.array_split(order, n_batch)):
+            size = idx.shape[1]
+            lo, hi = (0, size) if self.mesh is None \
+                else par.batch_rows(size, self.mesh)
+            table = torch.from_numpy(np.ascontiguousarray(
+                idx[:, lo:hi])).to(self.device)
+            out = self._epoch(train, size, len(idx))(
+                x_dev, y_dev, table, lr,
+                None if progress is None else progress.update)
+            losses.append(out[0])
+            auxes.append(out[1])
+            y_hats += list(out[2].unbind(0))
+            n_globals += [size] * len(idx)
+        if train:  # the replays moved the weights behind their versions
+            for m in self.model.modules():
+                if isinstance(m, CapsuleRouting):
+                    m.drop_bf16_copy()
+        return (torch.cat(losses),
+                {k: torch.cat([a[k] for a in auxes]) for k in auxes[0]},
+                y_hats, n_globals)
+
+    def drop_graphs(self):
+        """Forget the epochs' objects and their CUDA graphs (after the
+        device finished what they queued): what they read was replaced."""
+        if self._epochs and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._epochs.clear()
+        self._capture = None
 
     # -- checkpoint glue ---------------------------------------------------
 
@@ -414,7 +533,7 @@ class Trainer:
     def state_dict(self, epoch, plateau):
         """The checkpoint dict (every rank calls it: under a model axis
         the route weights and their Adam moments are gathered whole)."""
-        sd, optim = self.model.state_dict(), self.opt.state_dict()
+        sd, optim = self.model.state_dict(), steps.optimizer_state(self.opt)
         if self._shard_routing:
             sd = dict(sd, **{ROUTE_KEY: par.gather_nodes(sd[ROUTE_KEY],
                                                          self.mesh)})
@@ -442,10 +561,31 @@ class Trainer:
             sd = dict(sd, **{ROUTE_KEY: cut(sd[ROUTE_KEY])})
             if optim:
                 optim = _map_route_state(optim, self._route_index(), cut)
+        self.drop_graphs()
         self.model.load_state_dict(sd, strict=True)
         if optim:
-            self.opt.load_state_dict(optim)
+            steps.load_optimizer_state(self.opt, optim)
         return raw
+
+
+def _stacked(losses, auxes):
+    """The loop's per-batch losses and aux dicts as (n_batch,) tensors."""
+    return torch.stack(losses), {k: torch.stack([a[k] for a in auxes])
+                                 for k in (auxes[0] if auxes else {})}
+
+
+def _group_splits(splits):
+    """np.array_split's parts stacked into index tables, one per
+    distinct batch size (the larger parts come first, so at most two
+    groups); int64, as the device gathers take them."""
+    groups, start = [], 0
+    while start < len(splits):
+        end = start
+        while end < len(splits) and len(splits[end]) == len(splits[start]):
+            end += 1
+        groups.append(np.stack(splits[start:end]).astype(np.int64))
+        start = end
+    return groups
 
 
 def _labels(y):

@@ -7,7 +7,10 @@ masks from a seeded generator; the NMS, the int8 products
 (``torch._int_mm``) and int8 serving on the card against the CPU; the
 serving artifacts (export.py) loaded on the card, their launch counts
 and outputs; --remat's step; each kernel through its registered
-operator after a NaN fill of shared memory.
+operator after a NaN fill of shared memory; --scan_epoch's captured
+epochs against the eager loop (CapsuleNet through K3/K4, dropout
+masks, --remat, bf16 capsule eval after train replays, the launch
+counts under replay).
 
 Every test here needs a CUDA card and skips without one.  This file
 imports nothing of JAX, so it also runs on a machine without it:
@@ -30,7 +33,7 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
     _build, crop, decode, input_stage as ist, pool, quant, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.params import Params
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
-    checkpoint as ckpt, steps)
+    checkpoint as ckpt, driver, steps)
 
 pytestmark = pytest.mark.cuda
 
@@ -678,3 +681,168 @@ def test_ops_after_nan_fill(card):
         torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-6)
     after = _launches()
     assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1, 1)
+
+
+# ------------------------------------------------------------ --scan_epoch
+
+SCAN = dict(n_classes=43, lr_runtime=1e-3, lr_decay=0.1, n_epochs=2,
+            eval_every=1, train_frac=1, recon=True, recon_coef=5e-4,
+            l_coord=5.0, l_noobj=0.5, n_boxes=1, n_grid=2, darknet_input=64,
+            summary=False)
+
+
+def _scan_runs(params, data, n_epochs=2, before_epoch=None):
+    """``n_epochs`` train and eval epochs of a seed-0 Trainer on the card
+    through the loop and captured (cuDNN deterministic); each returns
+    every epoch's per-batch losses and outputs and the state after
+    (weights, BN buffers, Adam's state, the generator's state), and the
+    captured Trainer."""
+    x, y, xe, ye = data
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for scan in ("off", "on"):
+            params.scan_epoch = scan
+            t = driver.Trainer(params, seed=0, device="cuda", verbose=False)
+            assert t.scan_epoch == (scan == "on")
+            np.random.seed(0)
+            out = []
+            for _ in range(n_epochs):
+                if before_epoch is not None:
+                    before_epoch()
+                t.train_epoch(x, y, 1e-3, metric_on=False)
+                out.append((t.last_losses.clone(), torch.cat(t.last_outputs)))
+                t.eval_epoch(xe, ye, metric_on=False)
+                out.append((t.last_losses.clone(), torch.cat(t.last_outputs)))
+            torch.cuda.synchronize()
+            state = steps.optimizer_state(t.opt)["state"]
+            runs.append((out, {k: v.clone() for k, v in
+                               t.model.state_dict().items()}, state,
+                         None if t.generator is None
+                         else t.generator.get_state(), t))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return runs
+
+
+def _assert_equal_runs(runs):
+    (oa, sa, aa, ga, _), (ob, sb, ab, gb, _) = runs
+    for (la, ya), (lb, yb) in zip(oa, ob):
+        assert torch.equal(la, lb) and torch.equal(ya, yb)
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
+    for i in aa:
+        for k in aa[i]:
+            assert torch.equal(aa[i][k], ab[i][k]), (i, k)
+    assert (ga is None and gb is None) or torch.equal(ga, gb)
+
+
+def test_scan_capsule_k3_k4_matches_eager(card):
+    """CapsuleNet at batch 17 over 50 crops (batches of 17, 17, 16: two
+    graphs) through K3 and K4, shared memory filled with NaN before each
+    epoch (so before the capture): the captured epochs equal the loop's
+    to the bit, and the kernels' counts grow by one a replayed batch."""
+    p = Params(**dict(SCAN, model="capsule", batch_size=17,
+                      routing_impl="pallas"))
+    data = loader.synthetic_dataset("capsule", p, 50, 20)
+    before = _launches()
+    runs = _scan_runs(p, data, before_epoch=lambda: _build.fill_shared_memory(
+        float("nan")))
+    _assert_equal_runs(runs)
+    after = _launches()
+    # the loop and the captured run: 2 epochs of 3 train + 2 eval batches
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 20, 12)
+    assert set(runs[1][4]._epochs) == {(True, 17, 2), (True, 16, 1),
+                                       (False, 10, 2)}
+
+
+def test_scan_launch_counts_under_replay(card):
+    """`.launches` counts device launches under replay: a captured train
+    epoch adds K3 and K4 once a batch, an eval epoch K3 once a batch,
+    though the host calls the wrappers only at the capture."""
+    p = Params(**dict(SCAN, model="capsule", batch_size=8,
+                      routing_impl="pallas", scan_epoch="on"))
+    x, y, xe, ye = loader.synthetic_dataset("capsule", p, 24, 16)
+    t = driver.Trainer(p, seed=0, device="cuda", verbose=False)
+    for epoch in range(3):
+        routing.routed_capsules.launches = 0
+        routing.routed_capsules_backward.launches = 0
+        t.train_epoch(x, y, 1e-3, metric_on=False)
+        assert (routing.routed_capsules.launches,
+                routing.routed_capsules_backward.launches) == (3, 3), epoch
+        t.eval_epoch(xe, ye, metric_on=False)
+        assert routing.routed_capsules.launches == 5, epoch
+    assert all(e.graph is not None for e in t._epochs.values())
+
+
+def test_scan_dropout_masks_move_with_the_generator(card):
+    """A captured darknet_r forward in training (64 px, dropout 0.5) on
+    the same batch, replayed: each replay draws new masks (the outputs
+    differ), the outputs equal the eager sequence's from the same seed,
+    and so does the generator's state after."""
+    x = torch.rand((2, 64, 64, 3), generator=card, device="cuda")
+    table = torch.zeros((4, 2), dtype=torch.int64, device="cuda")
+    table[:, 1] = 1
+    y = torch.zeros((2,), device="cuda")
+    outs, states = [], []
+    for capture in (False, True):
+        model = DarkNet(1, 43, dropout=0.5, seed=0).cuda().train()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+
+        def step(xb, yb, model=model, gen=gen):
+            with torch.no_grad():
+                out = model(xb, generator=gen)
+            return out.sum(), out, {}
+
+        epoch = steps.Epoch(step, capture=steps.GraphCapture(
+            torch.device("cuda"), [gen]) if capture else None)
+        _, _, out = epoch(x, y, table)
+        assert (epoch.graph is not None) == capture
+        outs.append(out.clone())
+        states.append(gen.get_state())
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(states[0], states[1])
+    for i in range(1, 4):
+        assert not torch.equal(outs[1][i], outs[1][i - 1]), i
+
+
+def test_scan_remat_matches_eager_remat(card):
+    """--remat --scan_epoch on against eager --remat: darknet_r at 64 px,
+    dropout 0.5, batch 2 over 8 scenes (one eager batch, then 3 replays
+    an epoch, 7 in all): equal to the bit, the generator's state too."""
+    p = Params(**dict(SCAN, model="darknet_r", batch_size=2, dropout=0.5,
+                      remat=True))
+    x, y, xe, ye = loader.synthetic_dataset("darknet_r", p, 8, 4)
+    rng = np.random.RandomState(0)
+    data = (rng.uniform(-1, 1, x.shape).astype(np.float32), y,
+            rng.uniform(-1, 1, xe.shape).astype(np.float32), ye)
+    runs = _scan_runs(p, data)
+    _assert_equal_runs(runs)
+    assert runs[1][4].model.remat
+
+
+def test_scan_bf16_capsule_eval_reads_current_weights(card):
+    """bf16 CapsuleNet: after train replays (Adam moves the route weights
+    inside the train graph, without a version bump) an eval replay's
+    outputs equal an eager eval forward on the current weights, and the
+    whole run equals the loop's."""
+    p = Params(**dict(SCAN, model="capsule", batch_size=8,
+                      routing_impl="pallas", compute_dtype="bfloat16"))
+    data = loader.synthetic_dataset("capsule", p, 24, 8)
+    runs = _scan_runs(p, data)
+    _assert_equal_runs(runs)
+    t = runs[1][4]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t.train_epoch(data[0], data[1], 1e-3, metric_on=False)
+        t.eval_epoch(data[2], data[3], metric_on=False)
+        got = t.last_outputs[0].clone()
+        want = steps.eval_step(
+            t.model, torch.from_numpy(data[2]).cuda(),
+            torch.from_numpy(np.asarray(data[3], np.int64)).cuda(),
+            t.loss_cfg, "capsule")[1]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert torch.equal(got, want)
