@@ -238,10 +238,13 @@ after):
    kernels K3g/K4g (csrc/routing_general*.cu): K3g (saving s_t) and K4g
    against their plain versions at DarkCapsuleNet3's routing (1568 cells
    of 32 scenes: (1568, 512, 8) x (512, 43, 8, 21)) and DarkCapsuleNet2's
-   ((32, 784, 8) x (784, 49, 8, 48)), at two ragged N and at a
-   saturating input (x10), each call just after a NaN fill of shared
-   memory: K3's f32 band, K4's (dW's where its sum over the rows needs
-   it: atol K4G_DW_SHARE of max|dW|, the reason printed), two calls
+   ((32, 784, 8) x (784, 49, 8, 48)), at two ragged N, at a
+   saturating input (x10), at the launch plans' edges (GENERAL_EDGES,
+   the card tests' GENERAL_SHAPES) and at n_iter 1, 2 and 5, each call
+   just after a NaN fill of shared memory: caps (and s_t, but for the
+   saturating input) in K3's f32 band, K4's (dW's where its sum over
+   the rows needs it: atol
+   K4G_DW_SHARE of max|dW|, the reason printed), two calls
    bit-identical, one K3g and one K4g launch a call and no tuned one;
    then DarkCapsuleNet3 and DarkCapsuleNet2 at 224 px, batch 32, seeded
    weights, f32 and bf16 convs, routing "pallas" against "xla" under
@@ -250,8 +253,10 @@ after):
    DarkCapsuleNet2 with dropout 0.5 from one seed on both) with every
    gradient's cosine at least 0.99999, `darkcapsule_acc` equal on both
    paths, each step's ms and peak memory, the f32 pallas step's profile;
-   K3g and K4g at both shapes beside their bounds and plain versions
-   with their CUDA kernels a call; the builders (data/build.py, no cv2)
+   K3g and K4g at both shapes beside their bounds, their first design's
+   times and
+   their plain versions, with their launch plans and the device time of
+   each CUDA kernel of a call; the builders (data/build.py, no cv2)
    on a raw GTSRB/GTSDB tree written with numpy, read back by
    `loader.load_data`; `tools.capsule_interpret` on the card from a
    seeded CapsuleNet checkpoint: K3 launched once (the crop's routing)
@@ -3605,45 +3610,68 @@ VARIANT_ROUTINGS = {"darkcapsule3": (BATCH * 49, 512, 43, 8, 21),
 # atol this share of max|dW| (dW sums B rows per entry, in another order
 # than the plain einsum; the rule allows at most 1e-4 of it)
 K4G_DW_SHARE = 1e-5
-VARIANT_GROUPS = (("routing_bwd_general (K4g)", ("rg_bwd_", "rg_dw_sum")),
-                  ("routing_general (K3g)", ("rg_pass_kernel",
+VARIANT_GROUPS = (("routing_bwd_general (K4g)",
+                   ("rg_bwd_", "rg_sum_parts", "rg_tile_kernel<2")),
+                  ("routing_general (K3g)", ("rg_tile_kernel<0",
+                                             "rg_tile_kernel<1",
                                              "rg_squash_kernel")),
                   ) + DARK_GROUPS
+# the launch plans' edges, as tests/test_torch_port_cuda.py:GENERAL_SHAPES
+# (B, N, K, C, D): element groups of 16 and node tiles ragged, K 64, D 64,
+# in_C 16, clusters of blocks over the capsules, W copied by threads (in_C
+# D not a multiple of 4), the final launch's capsule ranges and batch
+# shares; and n_iter 1, 2 and 5
+GENERAL_EDGES = [(2, 24, 49, 8, 48), (3, 150, 43, 8, 21),
+                 (33, 77, 43, 8, 21), (5, 30, 3, 3, 5), (4, 40, 49, 8, 16),
+                 (3, 40, 64, 16, 64), (17, 67, 64, 8, 64),
+                 (19, 33, 43, 16, 21), (32, 784, 49, 8, 48),
+                 (40, 24, 43, 8, 21), (33, 130, 49, 8, 48),
+                 (16, 64, 64, 16, 64)]
+GENERAL_ITERS = [((33, 77, 43, 8, 21), 1), ((17, 40, 49, 8, 48), 2),
+                 ((33, 77, 43, 8, 21), 5)]
+# K3g's and K4g's first design (one thread an output, votes by FMAs) at
+# the variants' routings, ms (PERF.md's kernel table, NVIDIA H100 80GB
+# HBM3, 700 W): the yardstick of the tensor-core design
+FIRST_DESIGN_MS = {"darkcapsule3": (9.4968, 46.5273),
+                   "darkcapsule2": (1.0989, 2.7908)}
 
 
-def general_routing_call(x, w, cot):
+def general_routing_call(x, w, cot, n_iter=3):
     """K3g saving s_t, then K4g on that s_t, each just after a NaN fill of
     every SM's shared memory; returns (caps, s, dx, dW)."""
     _build.fill_shared_memory(float("nan"))
-    caps, s = torch.ops.cyt.routing(x, w, 3, False, True)
+    caps, s = torch.ops.cyt.routing(x, w, n_iter, False, True)
     _build.fill_shared_memory(float("nan"))
-    dx, dw = routing.routed_capsules_backward(x, w, s, cot, 3)
+    dx, dw = routing.routed_capsules_backward(x, w, s, cot, n_iter)
     torch.cuda.synchronize()
     return caps, s, dx, dw
 
 
 def check_routing_general():
     """Phase 33, first part: K3g and K4g against their plain versions at
-    both variants' routings, at ragged N and at a saturating input; two
-    calls bit-identical; each call one K3g and one K4g launch and no
-    tuned one.  Returns the max abs errors (K3g caps, K4g dx and dW) at
+    both variants' routings, at ragged N, at a saturating input, at the
+    launch plans' edges and at n_iter 1, 2 and 5; two calls
+    bit-identical; each call one K3g and one K4g launch and no tuned
+    one.  Returns the max abs errors (K3g caps, K4g dx and dW) at
     DarkCapsuleNet3's shape."""
     g = torch.Generator(device="cuda").manual_seed(33)
-    cases = [(name, shape, 1.0) for name, shape in VARIANT_ROUTINGS.items()]
-    cases += [("ragged", (5, 77, 43, 8, 21), 1.0),
-              ("ragged", (3, 150, 49, 8, 48), 1.0)]
-    cases += [("saturating", shape, 10.0)
+    cases = [(name, shape, 1.0, 3) for name, shape in VARIANT_ROUTINGS.items()]
+    cases += [("ragged", (5, 77, 43, 8, 21), 1.0, 3),
+              ("ragged", (3, 150, 49, 8, 48), 1.0, 3)]
+    cases += [("saturating", shape, 10.0, 3)
               for shape in VARIANT_ROUTINGS.values()]
+    cases += [("edge", shape, 1.0, 3) for shape in GENERAL_EDGES]
+    cases += [(f"n_iter {it}", shape, 1.0, it) for shape, it in GENERAL_ITERS]
     errs = None
-    for label, (b, n, k, c, d), scale in cases:
+    for label, (b, n, k, c, d), scale, n_iter in cases:
         require(routing.kernel_for(c, k, d) == "general",
                 f"{label}: not a general shape")
         x = scale * torch.randn((b, n, c), generator=g, device="cuda")
         w = 0.1 * torch.randn((n, k, c, d), generator=g, device="cuda")
         cot = torch.randn((b, k, d), generator=g, device="cuda")
         reset_launches()
-        first = general_routing_call(x, w, cot)
-        second = general_routing_call(x, w, cot)
+        first = general_routing_call(x, w, cot, n_iter)
+        second = general_routing_call(x, w, cot, n_iter)
         launches = read_launches()
         require(launches == launch_counts(routing_general=2,
                                           routing_bwd_general=2),
@@ -3651,10 +3679,14 @@ def check_routing_general():
         require(all(torch.equal(a, b) for a, b in zip(first, second)),
                 f"{label}: two calls differ")
         caps, s, dx, dw = first
-        want, _ = routing.routing_states_plain(x, w, 3)
+        want, want_s = routing.routing_states_plain(x, w, n_iter)
         k3_err = (caps - want).abs().max().item()
         torch.testing.assert_close(caps, want, **K3_TOL[False])
-        wdx, wdw = routing.routed_capsules_backward_plain(x, w, s, cot, 3)
+        if scale == 1.0:  # saturated, the plain f32 s_t itself leaves
+            # K3's band against f64 (seeded_variant's note)
+            torch.testing.assert_close(s, want_s, **K3_TOL[False])
+        wdx, wdw = routing.routed_capsules_backward_plain(x, w, s, cot,
+                                                          n_iter)
         dx_err = grad_close(f"K4g dx {label}", dx, wdx, False, scale > 1)
         big = wdw.abs().max().item()
         dw_err = (dw - wdw).abs().max().item()
@@ -3667,10 +3699,10 @@ def check_routing_general():
                   f"({band['atol']:.3e})")
         torch.testing.assert_close(dw, wdw, **band)
         print(f"[K3g/K4g] {label} x {(b, n, c)} scale {scale} w "
-              f"{(n, k, c, d)}: caps max_abs_err {k3_err} (|caps| max "
-              f"{want.abs().max().item():.3f}); dx {dx_err} (|dx| max "
-              f"{wdx.abs().max().item():.3e}); dW {dw_err} (|dW| max "
-              f"{big:.3e}, {dw_err / big:.2e} of it); two calls "
+              f"{(n, k, c, d)} n_iter {n_iter}: caps max_abs_err {k3_err} "
+              f"(|caps| max {want.abs().max().item():.3f}); dx {dx_err} "
+              f"(|dx| max {wdx.abs().max().item():.3e}); dW {dw_err} (|dW| "
+              f"max {big:.3e}, {dw_err / big:.2e} of it); two calls "
               f"bit-identical; launches {launches}")
         if errs is None:
             errs = (k3_err, max(dx_err, dw_err))
@@ -3867,17 +3899,28 @@ def time_routing_general():
                       x, w, s, cot, 3), iters=3, warmup=1)}
         t4["bound_ms"], t4["bound_by"], nb4, products, passes4 = \
             routing_bwd_bound(b, n, k, False, c=c, d=d)
-        for label, t, fn, nb, flop in (
-                ("K3g routing_general", t3, fwd, nb3, votes + passes),
+        plans = (routing._general_plan(b, n, k, c, d, routing._aligned(w),
+                                       torch.cuda.current_device()),
+                 routing._general_bwd_plan(b, n, k, c, d, 3,
+                                           routing._aligned(w),
+                                           torch.cuda.current_device()))
+        for label, t, fn, nb, flop, first, plan in (
+                ("K3g routing_general", t3, fwd, nb3, votes + passes,
+                 FIRST_DESIGN_MS[name][0], plans[0]),
                 ("K4g routing_bwd_general", t4, bwd, nb4,
-                 products + passes4)):
+                 products + passes4, FIRST_DESIGN_MS[name][1],
+                 plans[1])):
             t["kernels"] = count_kernels(fn)
             print(f"[time] {label} {name} x {(b, n, c)} w {(n, k, c, d)} "
                   f"f32: kernel {t['ms']:.4f} ms ({t['kernels']} CUDA "
                   f"kernels per call), bound {t['bound_ms']:.4f} ms "
                   f"({t['bound_by']}: {nb} bytes, {flop} FLOP), "
-                  f"{t['bound_ms'] / t['ms']:.3f} of it; plain "
+                  f"{t['bound_ms'] / t['ms']:.3f} of it; the first design "
+                  f"{first:.4f} ms ({first / t['ms']:.2f}x this); plain "
                   f"{t['plain_ms']:.4f} ms ({SMI})")
+            print(f"[time] {label} {name} plan: "
+                  + ", ".join(f"{key} {v}" for key, v in plan.items()
+                              if key != "raw"))
             launch_breakdown(fn, f"{label} {name}")
         out[name] = (t3, t4)
         del x, w, cot, s

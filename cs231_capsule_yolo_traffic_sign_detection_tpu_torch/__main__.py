@@ -50,7 +50,8 @@ and ``--train_frac``), and ``detect_and_recog_mAP`` and
 ``detect_and_recog_acc`` go to
 ``<model_dir>/combine-<capsule|cnn>_metric_output.txt``.  train and
 overfit train from ``--seed`` (or resume from ``--restore``) on the
-stored set, the first 3 samples of it for overfit, or the synthetic set
+stored set (``*_X.npy``/``*_Y.npy`` with ``--npy``), the first 3 samples
+of it for overfit, or the synthetic set
 when it is absent, and write ``last.ckpt``/``best.ckpt`` into
 ``<model_dir><train_frac>``.  The reference's quirks are kept: the
 optimizer LR comes from ``--lr`` only, ``--recon`` turns the
@@ -84,8 +85,9 @@ there are more than one, off otherwise (and on the CPU).  With
 runs its N*M/P of the ranks (one such process per host).  Rank 0 alone
 prints the summary and the epochs and writes the checkpoints,
 histories, metrics and frames.
-Training refuses ``--dtype int8`` (serving only), and any other
-mode exits with a "not ported yet" message.
+Training refuses ``--dtype int8`` (serving only).  The defaults are the
+JAX CLI's, ``--model cnn --mode train``; any other ``--mode`` reads
+params.json and runs nothing, as the JAX CLI.
 """
 
 import argparse
@@ -111,16 +113,14 @@ from .predict import CLASSIFIERS, class_pred, dark_class_pred, dark_pred
 from .train.driver import train_and_evaluate
 from .train.logging_utils import ScalarWriter
 
-PORTED = {(m, mode) for m in config.model_names
-          for mode in ("predict", "train", "overfit")}
 # the detectors --combine takes (JAX main.py's combine_model)
 DETECTORS = ("darknet_d", "darknet_r")
 
 parser = argparse.ArgumentParser(
     prog="python -m cs231_capsule_yolo_traffic_sign_detection_tpu_torch")
-parser.add_argument("--model", default="darknet_r",
+parser.add_argument("--model", default="cnn",
                     help=" | ".join(config.model_names))
-parser.add_argument("--mode", default="predict",
+parser.add_argument("--mode", default="train",
                     help="train | predict | overfit")
 parser.add_argument("--restore", default=None, help="last | best")
 parser.add_argument("--model_dir", default=None, help="model dir")
@@ -242,11 +242,6 @@ def main(argv=None):
     if args.model not in config.model_names:
         sys.exit("Did not recognize model, choose from: "
                  + " ".join(config.model_names))
-    if (args.model, args.mode) not in PORTED:
-        ported = ", ".join(f"--model {m} --mode {d}"
-                           for m, d in sorted(PORTED))
-        sys.exit(f"--model {args.model} --mode {args.mode} is not ported "
-                 f"yet; ported: {ported}")
     if args.mode == "predict" and args.restore is None:
         sys.exit("Must give restore file last/best")
     try:
@@ -290,6 +285,8 @@ def run(args, mesh=None):
     if args.mode in ("train", "overfit"):
         train(args, params, data_dir, model_dir, mesh)
         return
+    if args.mode != "predict":
+        return  # JAX main.py runs nothing for another --mode
 
     combine = is_combine(args)
     save_path = model_dir + "/metric_output.txt"
@@ -395,7 +392,7 @@ def train(args, params, data_dir, model_dir, mesh=None):
     primary = mesh is None or mesh.is_primary
     if is_small and primary:
         try:
-            loader.make_small_data(data_dir, 3)
+            loader.make_small_data(data_dir, 3, npy=args.npy)
         except (FileNotFoundError, OSError):
             print("[overfit] dataset absent; synthetic small set will be "
                   "used")

@@ -12,170 +12,44 @@
 //                   v_t = squash(s_t), logits += sum_d priors v_t
 // and caps = v_{n_iter-1}; the priors never reach global memory.
 //
-// Bound on the H100: operations.  Each routing pass recomputes the votes
-// (C FMAs per vote component).  The work needed once is the votes (2 B N
-// K C D FLOP) and 2 n_iter - 1 node-sized passes (2 B N K D each): at
-// DarkCapsuleNet3's shape (B 1568) 18.9 GFLOP against 46 MB moved, 0.28
-// ms at 67 TFLOP/s; at DarkCapsuleNet2's (B 32) 1.5 GFLOP against 60 MB
+// Bound on the H100: operations.  Each routing pass recomputes the votes.
+// The work needed once is the votes (2 B N K C D FLOP) and 2 n_iter - 1
+// node-sized passes (2 B N K D each): at DarkCapsuleNet3's shape (B 1568)
+// 18.9 GFLOP against 46 MB moved, 0.28 ms at 67 TFLOP/s; at
+// DarkCapsuleNet2's (B 32) 1.5 GFLOP against 60 MB
 // (chip_smoke.py:routing_bound).
 //
-// Design: the simple one, the two-launch design the tuned K3 replaced,
-// made shape-general; the tuned K3's cooperative launch, TMA staging and
-// mma.sync are left for a later redesign.  Per iteration, two launches:
-//  1. rg_pass_kernel, one block per (node tile, group of BG elements).
-//     Thread (k, h) owns capsule k's outputs d = h + i * lanes (see
-//     routing_general.cuh:lane_plan; D 48 takes 3 a thread over 16
-//     lanes, D 21 3 over 8, so odd D needs no paired loads).  Per node it
-//     forms the votes for the group's elements with W read from L2 one c
-//     at a time (DPT registers, so a node's W, 75 KB at D 48 and K 49,
-//     never has to sit in a block), the logit sum_d priors * V (V = v_0 +
-//     ... + v_{t-1}, staged in shared memory; no logits are stored)
-//     reduced over the capsule's lanes by shuffles, and the softmax over
-//     the K <= 64 capsules of each element, one warp a row, through
-//     shared memory (f32, max subtracted, IEEE expf and division).  It
-//     accumulates s[k,d] over the tile's nodes in registers and writes
-//     one partial per (element, tile).
+// Design.  The first design (one thread an output, votes by FMAs with W
+// read from L2 one in_C at a time, blocks of 4-8 elements, a barrier pair
+// a node) ran 34x and 48x over that bound.  Now, per iteration:
+//  1. rg_tile_kernel (routing_general.cuh), one block (or a cluster of
+//     S blocks splitting the capsules) per (node tile, group of 16
+//     elements): the votes on the tensor cores (3xTF32 mma.sync, the
+//     group as M) kept in registers across the softmax's barrier pair,
+//     the node sum s += probs priors by f32 FMAs, W by TMA bulk copies
+//     two chunks ahead on mbarriers; one partial s per (element, tile).
+//     The first pass has no logits: every probability is 1/K, no
+//     barrier pair.  At DarkCapsuleNet3's shape one block of 11 warps
+//     takes all 43 capsules (4 a warp, 12 n-tiles); at DarkCapsuleNet2's
+//     (B 32: two groups) a cluster of two blocks splits the 49 capsules,
+//     so that 33 node tiles put 132 blocks on the card;
 //  2. rg_squash_kernel, one block per element: the partials summed over
 //     the tiles in a fixed order, |s|^2 of each capsule summed in order
 //     d = 0 .. D-1, v = s * (|s|^2 / (1 + |s|^2) / sqrt(|s|^2 + 1e-12)).
 //     It adds v to V (V = v on the first pass), or writes the caps on the
 //     last; for training it also writes s_t, from which K4g
 //     (routing_general_bwd.cu) rebuilds V_t bit for bit.
-// The first pass skips the logits: every probability is 1/K.  No
-// atomics: two calls give the same bits.  W is read from L2 once per
-// element group and pass.
+// W is read from L2 once per element group and pass.  No atomics: two
+// calls give the same bits.  The squash stays its own launch (6 a call):
+// grid barriers (the tuned K3's) need a cooperative launch of blocks all
+// resident at once, where a pass here launches clusters and several
+// waves of blocks; the squashes take about 0.03 ms of a 5 ms call.
 
 #include "routing_general.cuh"
 
 namespace {
 
 using namespace cyt::rg;
-
-constexpr int kTileMin = 8, kTileMax = 32;  // nodes per pass block
-
-template <int MAXT>
-struct FwdGroup {
-  static constexpr int value = MAXT <= 512 ? 8 : 4;  // elements per block
-};
-
-// shared memory of a pass block, in floats
-__host__ __device__ inline int pass_floats(int tile, int bg, int K, int C,
-                                           int D) {
-  return tile * bg * C      // xs [tile][bg][C]
-         + bg * K * D       // V  [bg][K][D]
-         + 2 * bg * K;      // logits, then probabilities [2][bg][K]
-}
-
-template <int DPT, int MAXT>
-__global__ void __launch_bounds__(MAXT)
-    rg_pass_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ vsum,
-                   float* __restrict__ partial, int B, int N, int K, int C,
-                   int D, int lanes, int tile_nodes) {
-  constexpr int BG = FwdGroup<MAXT>::value;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;
-  float* vs = xs + tile_nodes * BG * C;
-  float* lg = vs + BG * K * D;
-  const int tile = blockIdx.x, tiles = gridDim.x;
-  const int b0 = blockIdx.y * BG;
-  const int n0 = tile * tile_nodes;
-  const int nn = min(tile_nodes, N - n0);
-  const int tid = threadIdx.x;
-  const int k = tid / lanes, h = tid % lanes;
-  const int warp = tid / 32, lane = tid % 32, warps = blockDim.x / 32;
-  const bool kv = k < K;
-  const int KD = K * D;
-  const int CD = C * D;
-  const bool first = vsum == nullptr;
-
-  // the tile's x for the group's elements, zero past B, and their V
-  for (int i = tid; i < nn * BG * C; i += blockDim.x) {
-    const int c = i % C, b = (i / C) % BG, n = i / (C * BG);
-    xs[i] = b0 + b < B ? x[(int64_t(b0 + b) * N + n0 + n) * C + c] : 0.f;
-  }
-  if (!first)
-    for (int i = tid; i < BG * KD; i += blockDim.x)
-      vs[i] = b0 + i / KD < B ? vsum[int64_t(b0) * KD + i] : 0.f;
-  int dj[DPT];
-  bool dv[DPT];
-#pragma unroll
-  for (int j = 0; j < DPT; ++j) {
-    dj[j] = h + j * lanes;
-    dv[j] = kv && dj[j] < D;
-  }
-  float acc[BG][DPT];
-#pragma unroll
-  for (int b = 0; b < BG; ++b)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[b][j] = 0.f;
-  const float uniform = 1.f / K;  // softmax of zero logits
-  __syncthreads();
-
-  for (int i = 0; i < nn; ++i) {
-    // votes for node n0 + i: this thread's outputs, BG elements
-    const float* wn = w + (int64_t(n0 + i) * K + (kv ? k : 0)) * CD;
-    const float* xn = xs + i * BG * C;
-    float p[BG][DPT];
-#pragma unroll
-    for (int b = 0; b < BG; ++b)
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) p[b][j] = 0.f;
-    for (int c = 0; c < C; ++c) {
-      float wv[DPT];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) wv[j] = dv[j] ? wn[c * D + dj[j]] : 0.f;
-#pragma unroll
-      for (int b = 0; b < BG; ++b) {
-        const float xv = xn[b * C + c];
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) p[b][j] = fmaf(xv, wv[j], p[b][j]);
-      }
-    }
-    if (first) {
-#pragma unroll
-      for (int b = 0; b < BG; ++b)
-#pragma unroll
-        for (int j = 0; j < DPT; ++j)
-          acc[b][j] = fmaf(uniform, p[b][j], acc[b][j]);
-      continue;
-    }
-    // logits: agreement with the running sum of earlier outputs, summed
-    // over the capsule's lanes
-    float* lgb = lg + (i & 1) * BG * K;  // double buffer: no WAR race
-    float l[BG];
-#pragma unroll
-    for (int b = 0; b < BG; ++b) {
-      float a = 0.f;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j)
-        if (dv[j]) a = fmaf(p[b][j], vs[(b * K + k) * D + dj[j]], a);
-      l[b] = lane_sum(a, lanes);
-    }
-    if (kv && h == 0)
-#pragma unroll
-      for (int b = 0; b < BG; ++b) lgb[b * K + k] = l[b];
-    __syncthreads();
-    for (int r = warp; r < BG; r += warps)
-      warp_softmax(lgb + r * K, K, nullptr, lane);
-    __syncthreads();
-#pragma unroll
-    for (int b = 0; b < BG; ++b) {
-      const float prob = kv ? lgb[b * K + k] : 0.f;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[b][j] = fmaf(prob, p[b][j], acc[b][j]);
-    }
-  }
-
-#pragma unroll
-  for (int b = 0; b < BG; ++b) {
-    if (b0 + b >= B) break;
-    float* dst = partial + (int64_t(b0 + b) * tiles + tile) * KD + k * D;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      if (dv[j]) dst[dj[j]] = acc[b][j];
-  }
-}
 
 // The node sums of element b: the tiles' partials summed in a fixed
 // order, squashed.  mode: 0 first pass (V = v), 1 middle pass (V += v),
@@ -215,136 +89,89 @@ __global__ void rg_squash_kernel(const float* __restrict__ partial,
   }
 }
 
-template <int DPT, int MAXT>
-int pick_tile(int B, int N, int K, int C, int D, int threads, int sms,
-              int optin) {
-  constexpr int BG = FwdGroup<MAXT>::value;
-  const int64_t groups = (B + BG - 1) / BG;
-  int best = 0;
-  int64_t best_cost = -1;
-  for (int t = kTileMax; t >= kTileMin; --t) {
-    const size_t smem = sizeof(float) * size_t(pass_floats(t, BG, K, C, D));
-    if (smem > size_t(optin)) continue;
-    int per_sm = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, rg_pass_kernel<DPT, MAXT>, threads, smem) != cudaSuccess)
-      return -1;
-    if (per_sm < 1) continue;
-    // blocks run in waves of per_sm x sms, each as long as its tile
-    const int64_t slots = int64_t(per_sm) * sms;
-    const int64_t blocks = (N + t - 1) / t * groups;
-    const int64_t cost = (blocks + slots - 1) / slots * t;
-    if (best_cost < 0 || cost < best_cost) {
-      best_cost = cost;
-      best = t;
-    }
-  }
-  return best;
+// the plan's ints, in order (see cyt_routing_general_plan)
+void plan_ints(const TileArgs& a, int* out) {
+  const int v[] = {a.tile, a.tiles, a.S, a.NB, a.warps, a.cw, a.nt, a.bulk};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
 }
-
-template <int DPT, int MAXT>
-int plan(int B, int N, int K, int C, int D, int* out) {
-  const LanePlan lp = lane_plan(D);
-  const int threads = block_threads(K, lp.lanes);
-  int dev = 0, sms = 0;
-  const int optin = allow_smem(rg_pass_kernel<DPT, MAXT>);
-  if (optin < 0 || cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return static_cast<int>(cudaGetLastError());
-  const int tile = pick_tile<DPT, MAXT>(B, N, K, C, D, threads, sms, optin);
-  if (tile < 0) return static_cast<int>(cudaGetLastError());
-  if (tile == 0) return static_cast<int>(cudaErrorInvalidValue);
-  out[0] = tile;
-  out[1] = (N + tile - 1) / tile;
-  out[2] = threads;
-  out[3] = FwdGroup<MAXT>::value;
-  out[4] = lp.dpt;
-  out[5] = lp.lanes;
-  return 0;
-}
-
-template <int DPT, int MAXT>
-int run(const float* x, const float* w, float* partial, float* vsum,
-        float* out, float* s_saved, int B, int N, int K, int C, int D,
-        int n_iter, int tile_nodes, cudaStream_t s) {
-  constexpr int BG = FwdGroup<MAXT>::value;
-  const LanePlan lp = lane_plan(D);
-  const int threads = block_threads(K, lp.lanes);
-  const int tiles = (N + tile_nodes - 1) / tile_nodes;
-  const int64_t groups = (B + BG - 1) / BG;
-  const int optin = allow_smem(rg_pass_kernel<DPT, MAXT>);
-  const size_t smem =
-      sizeof(float) * size_t(pass_floats(tile_nodes, BG, K, C, D));
-  if (optin < 0) return static_cast<int>(cudaGetLastError());
-  if (smem > size_t(optin) || groups > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(tiles, unsigned(groups));
-  const int sq_threads = min((K * D + 31) / 32 * 32, 1024);
-  const size_t sq_smem = sizeof(float) * size_t(K * D + K);
-  for (int t = 0; t < n_iter; ++t) {
-    rg_pass_kernel<DPT, MAXT><<<grid, threads, smem, s>>>(
-        x, w, t == 0 ? nullptr : vsum, partial, B, N, K, C, D, lp.lanes,
-        tile_nodes);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    rg_squash_kernel<<<B, sq_threads, sq_smem, s>>>(
-        partial, vsum, out,
-        s_saved == nullptr ? nullptr : s_saved + int64_t(t) * B * K * D, K, D,
-        tiles, t == n_iter - 1 ? 2 : (t == 0 ? 0 : 1));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
-}
-
-struct PlanOp {
-  template <int DPT, int MAXT>
-  static int call(int b, int n, int k, int c, int d, int* out) {
-    return plan<DPT, MAXT>(b, n, k, c, d, out);
-  }
-};
-
-struct RunOp {
-  template <int DPT, int MAXT, typename... A>
-  static int call(A... a) {
-    return run<DPT, MAXT>(a...);
-  }
-};
 
 }  // namespace
 
-// K3g's launch plan for (B, N, K, C, D) on the current device, in out[6]:
-// the node tile, the tiles, threads a block, elements a block, outputs a
-// thread, lanes a capsule.  Returns 0, or a CUDA error code.
+// K3g's launch plan for (B, N, K, C, D) on the current device, for a W
+// at address w_addr (TMA needs 16-byte alignment), in out[8]: the node
+// tile, the tiles, blocks a cluster, nodes a chunk, warps a block,
+// capsules a warp, n-tiles a capsule, W by bulk copies (1) or not (0).
+// Returns 0, or a CUDA error code.
 extern "C" int cyt_routing_general_plan(int64_t B, int64_t N, int64_t K,
-                                        int64_t C, int64_t D, int* out) {
+                                        int64_t C, int64_t D, int64_t w_addr,
+                                        int* out) {
   if (!shape_ok(B, N, K, C, D)) return static_cast<int>(cudaErrorInvalidValue);
-  const int b = int(B), n = int(N), k = int(K), c = int(C), d = int(D);
-  return dispatch<PlanOp>(d, k, b, n, k, c, d, out);
+  TileArgs a = {};
+  const int err = plan_tile(a, int(B), int(N), int(K), int(C), int(D),
+                                   1, w_addr);
+  if (err == 0) plan_ints(a, out);
+  return err;
 }
 
 // x: (B, N, C) and w: (N, K, C, D) contiguous f32 (C <= 16, K <= 64,
-// D <= 64); partial: (B, ceil(N / tile_nodes), K, D) f32 scratch; vsum:
-// (B, K, D) f32 scratch; out: (B, K, D) f32; s_saved: (n_iter, B, K, D)
-// f32 or null.  Launches 2 n_iter kernels on `stream`.  Returns the first
-// cudaGetLastError() that is not 0, or 0.
+// D <= 64); partial: (B, tiles, K, D) f32 scratch; vsum: (B, K, D) f32
+// scratch; out: (B, K, D) f32; s_saved: (n_iter, B, K, D) f32 or null;
+// plan: the 8 ints of cyt_routing_general_plan for this w.  Launches
+// 2 n_iter kernels on `stream`.  Returns the first error that is not 0,
+// or 0.
 extern "C" int cyt_routing_general(const void* x, const void* w,
                                    void* partial, void* vsum, void* out,
                                    void* s_saved, int64_t B, int64_t N,
                                    int64_t K, int64_t C, int64_t D,
-                                   int n_iter, int tile_nodes, void* stream) {
-  if (!shape_ok(B, N, K, C, D) || n_iter < 1 || tile_nodes < kTileMin ||
-      tile_nodes > kTileMax)
+                                   int n_iter, const int* plan,
+                                   void* stream) {
+  if (!shape_ok(B, N, K, C, D) || n_iter < 1 || plan == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  TileArgs a = {};
+  int err = plan_tile(a, int(B), int(N), int(K), int(C), int(D), 1,
+                             reinterpret_cast<int64_t>(w));
+  int mine[8];
+  if (err != 0) return err;
+  plan_ints(a, mine);
+  for (int i = 0; i < 8; ++i)
+    if (mine[i] != plan[i]) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int b = int(B), n = int(N), k = int(K), c = int(C), d = int(D);
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
+  const int b = int(B), k = int(K), d = int(D);
+  const int groups = (b + kRows - 1) / kRows;
   float* p = static_cast<float*>(partial);
   float* v = static_cast<float*>(vsum);
   float* o = static_cast<float*>(out);
   float* ss = static_cast<float*>(s_saved);
-  return dispatch<RunOp>(d, k, xf, wf, p, v, o, ss, b, n, k, c, d, n_iter,
-                         tile_nodes, s);
+  a.x = static_cast<const float*>(x);
+  a.w = static_cast<const float*>(w);
+  a.vec0 = v;
+  a.vec1 = nullptr;
+  a.vec_stride = int64_t(k) * d;
+  a.partial = p;
+  const int sq_threads = min((k * d + 31) / 32 * 32, 1024);
+  const size_t sq_smem = sizeof(float) * size_t(k * d + k);
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  for (int t = 0; t < n_iter; ++t) {
+    TileArgs at = a;
+    if (t == 0) {  // the first pass: no logits, chunks of 2 nodes
+      at.nv = 0;
+      at.NB = 2;
+      tile_layout(at);
+      if (tile_bytes(at) > size_t(optin)) at.NB = 1;
+    }
+    tile_layout(at);
+    cudaError_t e = run_tile<false>(at, groups, s);
+    if (e == cudaSuccess) e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    rg_squash_kernel<<<b, sq_threads, sq_smem, s>>>(
+        p, v, o, ss == nullptr ? nullptr : ss + int64_t(t) * b * k * d, k, d,
+        a.tiles, t == n_iter - 1 ? 2 : (t == 0 ? 0 : 1));
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }

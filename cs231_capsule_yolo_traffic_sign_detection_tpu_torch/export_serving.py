@@ -39,7 +39,8 @@ from .ops.preprocess import preprocess_images
 def _load_params(model, args):
     """The CLI's params for ``model`` (its params.json with the CLI's
     defaults and these overrides)."""
-    ns = cli.parser.parse_args(["--model", model, "--dtype", args.dtype,
+    ns = cli.parser.parse_args(["--model", model, "--mode", "predict",
+                                "--dtype", args.dtype,
                                 "--train_frac", str(args.train_frac),
                                 "--device", args.device])
     model_dir = (args.model_dir if model == args.model and args.model_dir

@@ -114,17 +114,17 @@ def library():
                                          ctypes.POINTER(i32)]
     lib.cyt_routing_bwd_plan.restype = i32
     lib.cyt_routing_general.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64,
-                                         i64, i32, i32, p]
+                                         i64, i32, ctypes.POINTER(i32), p]
     lib.cyt_routing_general.restype = i32
-    lib.cyt_routing_general_plan.argtypes = [i64, i64, i64, i64, i64,
+    lib.cyt_routing_general_plan.argtypes = [i64, i64, i64, i64, i64, i64,
                                              ctypes.POINTER(i32)]
     lib.cyt_routing_general_plan.restype = i32
-    lib.cyt_routing_bwd_general.argtypes = [p, p, p, p, p, p, p, p, p, i64,
-                                            i64, i64, i64, i64, i32,
+    lib.cyt_routing_bwd_general.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
+                                            i64, i64, i64, i64, i64, i32,
                                             ctypes.POINTER(i32), p]
     lib.cyt_routing_bwd_general.restype = i32
     lib.cyt_routing_bwd_general_plan.argtypes = [i64, i64, i64, i64, i64, i32,
-                                                 ctypes.POINTER(i32)]
+                                                 i64, ctypes.POINTER(i32)]
     lib.cyt_routing_bwd_general_plan.restype = i32
     lib.cyt_fill_shared.argtypes = [f32, p]
     lib.cyt_fill_shared.restype = i32

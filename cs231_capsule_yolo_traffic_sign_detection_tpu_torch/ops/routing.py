@@ -98,8 +98,14 @@ def routed_capsules_backward_plain(x, w, s_saved, g, n_iter=3, bf16=False):
     Returns dx and dW in f32 (f64 for f64 operands).
     """
     xf, wf = _operands(x, w, bf16)
+    return _routing_vjp(xf, wf, s_saved, g, n_iter, torch.einsum)
+
+
+def _routing_vjp(xf, wf, s_saved, g, n_iter, product):
+    """`routed_capsules_backward_plain` with its three node-sized
+    products (the votes, dx and dW) taken by ``product(equation, a, b)``."""
     s_saved, g = s_saved.to(xf.dtype), g.to(xf.dtype)
-    priors = compute_priors(xf, wf)                       # (B, N, K, D)
+    priors = product("bni,nkio->bnko", xf, wf)            # (B, N, K, D)
     k = priors.shape[2]
     v = [squash(s_saved[t]) for t in range(n_iter - 1)]   # (B, K, D)
 
@@ -122,9 +128,48 @@ def routed_capsules_backward_plain(x, w, s_saved, g, n_iter=3, bf16=False):
         lbar = lbar + p * (pbar - (p * pbar).sum(dim=2, keepdim=True))
         vbar = (priors * lbar[..., None]).sum(dim=1)      # (B, K, D)
         d_priors = d_priors + v[t - 1][:, None] * lbar[..., None]
-    dx = torch.einsum("bnkd,nkcd->bnc", d_priors, wf)
-    dw = torch.einsum("bnkd,bnc->nkcd", d_priors, xf)
+    dx = product("bnkd,nkcd->bnc", d_priors, wf)
+    dw = product("bnkd,bnc->nkcd", d_priors, xf)
     return dx, dw
+
+
+# ---- the general kernels' split-precision products, emulated (a test
+# aid: nothing on a path calls these)
+
+def tf32_round(t):
+    """f32 to TF32 as cvt.rna.tf32.f32 rounds (the kernels' two integer
+    operations, csrc/routing_general.cuh:tf32): half a TF32 ulp added to
+    the magnitude's bits, the 13 bits TF32 drops cleared."""
+    bits = t.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def einsum_3xtf32(equation, a, b):
+    """``torch.einsum(equation, a, b)`` in f32 as K3g/K4g's mma.sync
+    take it: each operand split into hi = tf32(v) and lo = tf32(v - hi),
+    and a b as a_lo b_hi + a_hi b_lo + a_hi b_hi, the two small products
+    first; a product of TF32 values is exact in f32, the sums are f32."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return (torch.einsum(equation, al, bh) + torch.einsum(equation, ah, bl)
+            + torch.einsum(equation, ah, bh))
+
+
+def routing_states_3xtf32(x, w, n_iter=3):
+    """`routing_states_plain` in f32 with K3g's votes: x W as 3xTF32
+    products; the softmax, the node sums and the squash f32."""
+    x, w = _operands(x, w, False)
+    priors = einsum_3xtf32("bni,nkio->bnko", x, w)
+    caps, s_all = routing_iterations(priors, n_iter)
+    return caps[:, 0], s_all
+
+
+def routed_capsules_backward_3xtf32(x, w, s_saved, g, n_iter=3):
+    """`routed_capsules_backward_plain` in f32 with K4g's products: the
+    votes, dx = dP W^T and dW = x^T dP as 3xTF32 products."""
+    xf, wf = _operands(x, w, False)
+    return _routing_vjp(xf, wf, s_saved, g, n_iter, einsum_3xtf32)
 
 
 def _check(name, x, w, n_iter, bf16):
@@ -199,9 +244,10 @@ def _k3g(x, w, n_iter, bf16, s_saved=None):
     b, n, c = x.shape
     k, d = w.shape[1], w.shape[3]
     with torch.cuda.device(x.device):
-        plan = _general_plan(b, n, k, c, d, torch.cuda.current_device())
+        plan = _general_plan(b, n, k, c, d, _aligned(w),
+                             torch.cuda.current_device())
         f32 = dict(dtype=torch.float32, device=x.device)
-        # per (element, node tile) node sums: 90 MB at DarkCapsuleNet3's
+        # per (element, node tile) node sums: 45 MB at DarkCapsuleNet3's
         # 1568 cells
         partial = torch.empty((b, plan["tiles"], k, d), **f32)
         vsum = torch.empty((b, k, d), **f32)
@@ -209,11 +255,17 @@ def _k3g(x, w, n_iter, bf16, s_saved=None):
         err = _build.library().cyt_routing_general(
             x.data_ptr(), w.data_ptr(), partial.data_ptr(), vsum.data_ptr(),
             out.data_ptr(), None if s_saved is None else s_saved.data_ptr(),
-            b, n, k, c, d, int(n_iter), plan["tile"],
+            b, n, k, c, d, int(n_iter), plan["raw"],
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "routing_general")
     routed_capsules.launches_general += 1
     return out
+
+
+def _aligned(w):
+    """8 when W's address is not a multiple of 16 bytes (no TMA copies of
+    it), else 0: the plans' w_addr."""
+    return 0 if w.data_ptr() % 16 == 0 else 8
 
 
 def _out_dtype(x):
@@ -384,21 +436,27 @@ def _k4g(x, w, s_saved, g, n_iter):
     b, n, c = x.shape
     k, d = w.shape[1], w.shape[3]
     with torch.cuda.device(x.device):
-        plan = _general_bwd_plan(b, n, k, c, d, int(n_iter),
+        plan = _general_bwd_plan(b, n, k, c, d, int(n_iter), _aligned(w),
                                  torch.cuda.current_device())
         f32 = dict(dtype=torch.float32, device=x.device)
         # per element: sbar_t, V_t and v_t (3 n_iter - 2 vectors of K x D);
-        # per (element, node tile) partial sums of vbar; with batch shares,
-        # each share's dW
+        # per (element, node tile) partial sums of vbar; per (element,
+        # node, capsule) probs_t and Lbar_t of t = 1 .. n_iter - 1 (552 MB
+        # at DarkCapsuleNet3's 1568 cells); with capsule ranges each
+        # range's dx, with batch shares each share's dW
         state = torch.empty((b, 3 * n_iter - 2, k, d), **f32)
         partial = torch.empty((b, plan["tiles"], k, d), **f32)
+        coef = torch.empty((2 * (n_iter - 1), b, n, k), **f32)
+        dx_parts = (torch.empty((plan["ranges"], b, n, c), **f32)
+                    if plan["ranges"] > 1 else None)
         dw_parts = (torch.empty((plan["shares"], n, k, c, d), **f32)
                     if plan["shares"] > 1 else None)
         dx = torch.empty((b, n, c), **f32)
         dw = torch.empty((n, k, c, d), **f32)
         err = _build.library().cyt_routing_bwd_general(
             x.data_ptr(), w.data_ptr(), s_saved.data_ptr(), g.data_ptr(),
-            state.data_ptr(), partial.data_ptr(),
+            state.data_ptr(), partial.data_ptr(), coef.data_ptr(),
+            None if dx_parts is None else dx_parts.data_ptr(),
             None if dw_parts is None else dw_parts.data_ptr(), dx.data_ptr(),
             dw.data_ptr(), b, n, k, c, d, int(n_iter), plan["raw"],
             torch.cuda.current_stream(x.device).cuda_stream)
@@ -447,38 +505,51 @@ def _bwd_plan(b, n, k, n_iter, dtype_code, device_index):
                      "partials", "final_resident", "pass_resident"), out))
 
 
+# the pass launches' plan (routing_general.cuh:plan_tile), as K3g's and
+# K4g's plan functions return it
+TILE_PLAN = ("tile", "tiles", "cluster", "chunk", "warps", "capsules_a_warp",
+             "ntiles", "bulk")
+
+
 @functools.lru_cache(maxsize=64)
-def _general_plan(b, n, k, c, d, device_index):
+def _general_plan(b, n, k, c, d, w_addr, device_index):
     """K3g's launch plan on the current device (csrc/routing_general.cu:
-    cyt_routing_general_plan), cached like `_plan`: the node tile, the
-    tiles, threads a block, elements a block, outputs a thread, lanes a
-    capsule."""
-    out = (ctypes.c_int * 6)()
-    err = _build.library().cyt_routing_general_plan(b, n, k, c, d, out)
+    cyt_routing_general_plan), cached like `_plan`: the node tile and
+    tiles, blocks a cluster (splitting the capsules), nodes a chunk (a
+    barrier pair), warps a block, capsules a warp, n-tiles of 8 outputs
+    a capsule, and whether W arrives by TMA bulk copies (``w_addr`` % 16
+    == 0); ``raw`` is the array the launch takes."""
+    out = (ctypes.c_int * 8)()
+    err = _build.library().cyt_routing_general_plan(b, n, k, c, d, w_addr,
+                                                    out)
     if err != 0:
         raise RuntimeError("routed_capsules: no general launch plan for "
                            f"B {b}, N {n}, K {k}, C {c}, D {d} on this "
                            f"device (cudaError {err})")
-    return dict(zip(("tile", "tiles", "threads", "elements", "dpt",
-                     "lanes"), out))
+    plan = dict(zip(TILE_PLAN, out))
+    plan["raw"] = out
+    return plan
 
 
 @functools.lru_cache(maxsize=64)
-def _general_bwd_plan(b, n, k, c, d, n_iter, device_index):
-    """K4g's launch plan on the current device (csrc/
+def _general_bwd_plan(b, n, k, c, d, n_iter, w_addr, device_index):
+    """K4g's launch plans on the current device (csrc/
     routing_general_bwd.cu: cyt_routing_bwd_general_plan), cached: the
-    pass launches' node tile and tiles, the final launch's in_C range,
-    ranges, groups a batch share and shares, threads a block and
-    elements a group; ``raw`` is the array the launch takes."""
-    out = (ctypes.c_int * 8)()
+    pass launches' (as K3g's, `TILE_PLAN`) and the final launch's
+    capsule ranges, capsules a range, capsules a warp, warps, nodes a
+    block, element groups a batch share, shares and node tiles; ``raw``
+    is the array the launch takes."""
+    out = (ctypes.c_int * 16)()
     err = _build.library().cyt_routing_bwd_general_plan(b, n, k, c, d,
-                                                        n_iter, out)
+                                                        n_iter, w_addr, out)
     if err != 0:
         raise RuntimeError("routed_capsules_backward: no general launch "
                            f"plan for B {b}, N {n}, K {k}, C {c}, D {d}, "
                            f"n_iter {n_iter} on this device (cudaError "
                            f"{err})")
-    plan = dict(zip(("tile", "tiles", "c_range", "c_ranges", "share",
-                     "shares", "threads", "elements"), out))
+    plan = dict(zip(TILE_PLAN + ("ranges", "range_capsules",
+                                 "final_capsules_a_warp", "final_warps",
+                                 "final_nodes", "share", "shares",
+                                 "final_tiles"), out))
     plan["raw"] = out
     return plan

@@ -258,11 +258,18 @@ def test_routing_kernels_are_deterministic(card, bf16):
 
 # the general kernels K3g/K4g: DarkCapsuleNet2's routing (K 49, D 48) and
 # DarkCapsuleNet3's (K 43, D 21) at small N and B, ragged element groups
-# and node tiles, in_C and D off the tuned 8 / 16, and the largest shape
-# they take
+# (16 a block) and node tiles, in_C and D off the tuned 8 / 16, and the
+# largest shape they take; then the launch plans' edges: K 64 and D 64
+# (clusters of blocks over the capsules, the final launch's capsule
+# ranges), in_C 16, DarkCapsuleNet2's B 32 at full N, batch shares of the
+# final launch (few node tiles), W copied by threads (in_C D 15, not a
+# multiple of 4)
 GENERAL_SHAPES = [(2, 24, 49, 8, 48), (3, 150, 43, 8, 21),
                   (33, 77, 43, 8, 21), (5, 30, 3, 3, 5), (4, 40, 49, 8, 16),
-                  (3, 40, 64, 16, 64)]
+                  (3, 40, 64, 16, 64), (17, 67, 64, 8, 64),
+                  (19, 33, 43, 16, 21), (32, 784, 49, 8, 48),
+                  (40, 24, 43, 8, 21), (33, 130, 49, 8, 48),
+                  (16, 64, 64, 16, 64)]
 
 
 @pytest.mark.parametrize("shape", GENERAL_SHAPES)
@@ -302,6 +309,30 @@ def test_general_routing_kernels_match_plain(card, shape):
     for got, ref in zip((dx, dw),
                         routing.routed_capsules_backward_plain(x, w, s, g,
                                                                3)):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape, n_iter", [((33, 77, 43, 8, 21), 1),
+                                           ((17, 40, 49, 8, 48), 2),
+                                           ((33, 77, 43, 8, 21), 5)])
+def test_general_routing_kernels_other_n_iter(card, shape, n_iter):
+    """K3g and K4g at n_iter 1 (no pass launch in K4g), 2 and 5 (K4g's
+    terms in two batches) against their plain versions."""
+    b, n, k, c, d = shape
+    x = torch.randn((b, n, c), generator=card, device="cuda")
+    w = 0.1 * torch.randn((n, k, c, d), generator=card, device="cuda")
+    g = torch.randn((b, k, d), generator=card, device="cuda")
+    _build.fill_shared_memory(float("nan"))
+    caps, s = torch.ops.cyt.routing(x, w, n_iter, False, True)
+    _build.fill_shared_memory(float("nan"))
+    dx, dw = routing.routed_capsules_backward(x, w, s, g, n_iter)
+    torch.cuda.synchronize()
+    want, want_s = routing.routing_states_plain(x, w, n_iter)
+    torch.testing.assert_close(caps, want, rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(s, want_s, rtol=2e-5, atol=2e-6)
+    for got, ref in zip((dx, dw),
+                        routing.routed_capsules_backward_plain(x, w, s, g,
+                                                               n_iter)):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
 
 

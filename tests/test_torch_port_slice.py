@@ -160,15 +160,23 @@ def test_cli_predict_writes_metrics(slice_setup, tmp_path):
     ["--model", "darkcapsule", "--mode", "export", "--restore", "last"],
     ["--model", "darknet_d", "--mode", "train", "--dtype", "int8"],
 ])
-def test_cli_refuses_what_is_not_ported(argv):
-    """A mode the port lacks exits "not ported yet"; --dtype int8 is
-    serving only, and training raises the JAX Trainer's message."""
+def test_cli_refuses_what_is_not_ported(argv, tmp_path, monkeypatch,
+                                       capsys):
+    """A mode the JAX CLI lacks runs nothing, as there (main.py falls
+    through every branch); --dtype int8 is serving only, and training
+    raises the JAX Trainer's message."""
     if "int8" in argv:
         with pytest.raises(ValueError, match="serving-only"):
             cli.main(argv)
     else:
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.main(argv)
+        d = tmp_path / "experiments" / argv[1]
+        d.mkdir(parents=True)
+        Params(**PARAMS).save(str(d / "params.json"))
+        monkeypatch.chdir(tmp_path)
+        assert cli.main(argv) is None
+        assert capsys.readouterr().out == ""
+        assert sorted(p.name for p in tmp_path.rglob("*")) == [
+            argv[1], "experiments", "params.json"]
 
 
 def test_import_leaves_jax_out():
