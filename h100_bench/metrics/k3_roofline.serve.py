@@ -1,0 +1,21 @@
+"""k3_roofline.serve: K3 (csrc/routing.cu, CapsuleNet's votes and
+dynamic routing in one cooperative launch) in serving against its
+roofline: the least time of one call (work.k3_work) over its device
+time, in percent.  Device trace, attributed by kernel name."""
+
+from h100_bench.work import k3_work, roofline_s
+
+KERNELS = ("routing_kernel<",)
+SAVE_STATES = False
+
+
+def read(ctx):
+    ks = ctx.kernels(*KERNELS)
+    if not ks:
+        return None
+    per_call = sum(s for _, s in ks) / len(ks)
+    c = ctx.config
+    flop, n_bytes = k3_work(ctx.batch, c["routing_nodes"], c["n_classes"],
+                            c["n_iter"], c["in_dim"], c["out_dim"],
+                            save_states=SAVE_STATES)
+    return roofline_s(flop, n_bytes) / per_call * 100
