@@ -50,6 +50,7 @@ import numpy as np
 import torch
 from torch.export.passes import move_to_device_pass
 
+from . import profiling
 from .data.loader import center_rgb
 from .device import compute_dtype, resolve_device
 from .models import ConvNet
@@ -82,8 +83,10 @@ def make_detector_fn(model, *, n_boxes, n_classes, img_size, conf_th=0.5,
     The BN-folded serving forward (`darknet_serving_apply`: K2 for block
     1, K1 at the other four pools, in ``dtype``) on ``model``'s weights,
     then the full-width grid decode (every g*g*B candidate) and, with
-    ``use_nms``, the greedy NMS."""
-    p = prepare_serving(model.state_dict(), dtype)
+    ``use_nms``, the greedy NMS.  The build is a ``cyt.setup.prepare``
+    span, the fn's first call a ``cyt.setup.first_call`` (`profiling`)."""
+    with profiling.span(profiling.SETUP_PREPARE):
+        p = prepare_serving(model.state_dict(), dtype)
 
     def fn(x):
         y = darknet_serving_apply(p, x, n_boxes=n_boxes, n_classes=n_classes,
@@ -91,20 +94,22 @@ def make_detector_fn(model, *, n_boxes, n_classes, img_size, conf_th=0.5,
         return _decode(y, n_boxes=n_boxes, n_classes=n_classes,
                        img_size=img_size, conf_th=conf_th, use_nms=use_nms)
 
-    return fn
+    return profiling.first_call(fn)
 
 
 def make_classifier_fn(model):
     """Classifier serving fn: x (B, 32, 32, 3) f32 -> (scores f32,
     argmax).  ``model`` (CapsuleNet or ConvNet, put in eval mode) serves
-    in its own dtype, CapsuleNet through its routing impl."""
-    model.eval()
+    in its own dtype, CapsuleNet through its routing impl.  Spans as
+    `make_detector_fn`'s."""
+    with profiling.span(profiling.SETUP_PREPARE):
+        model.eval()
 
     def fn(x):
         scores = model(x).float()
         return scores, torch.argmax(scores, dim=-1)
 
-    return fn
+    return profiling.first_call(fn)
 
 
 def make_int8_detector_fn(qparams, *, n_boxes, n_classes, img_size,

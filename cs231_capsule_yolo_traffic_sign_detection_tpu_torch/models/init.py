@@ -18,6 +18,8 @@ import math
 import torch
 import torch.nn as nn
 
+from .. import profiling
+
 
 def torch_default_(module, generator):
     """Re-draw a conv's or linear layer's weight and bias in place."""
@@ -38,15 +40,17 @@ def route_weights_(param, generator):
 def _init_layers(model, seed):
     """Every conv and dense layer and every capsule layer's route weights
     from ``torch.Generator(seed)``, in registration order; BatchNorm reset
-    to its defaults."""
-    g = torch.Generator().manual_seed(int(seed))
-    for module in model.modules():
-        if isinstance(module, (nn.Conv2d, nn.Linear)):
-            torch_default_(module, g)
-        elif isinstance(module, nn.BatchNorm2d):
-            module.reset_parameters()
-        elif isinstance(getattr(module, "route_weights", None), nn.Parameter):
-            route_weights_(module.route_weights, g)
+    to its defaults; a ``cyt.setup.init`` span (`profiling`)."""
+    with profiling.span(profiling.SETUP_INIT):
+        g = torch.Generator().manual_seed(int(seed))
+        for module in model.modules():
+            if isinstance(module, (nn.Conv2d, nn.Linear)):
+                torch_default_(module, g)
+            elif isinstance(module, nn.BatchNorm2d):
+                module.reset_parameters()
+            elif isinstance(getattr(module, "route_weights", None),
+                            nn.Parameter):
+                route_weights_(module.route_weights, g)
     return model
 
 

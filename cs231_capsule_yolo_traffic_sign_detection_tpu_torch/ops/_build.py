@@ -19,6 +19,8 @@ import tempfile
 
 import torch
 
+from .. import profiling
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 SOURCES = ("pool_leaky.cu", "input_stage.cu", "routing.cu",
@@ -94,8 +96,16 @@ def build(verbose=False):
 
 @functools.lru_cache(maxsize=None)
 def library():
-    """The loaded kernel library, built on first use, with argtypes set."""
-    lib = ctypes.CDLL(build())
+    """The loaded kernel library, built on first use, with argtypes set;
+    a ``cyt.setup.build`` span (`profiling`)."""
+    with profiling.span(profiling.SETUP_BUILD):
+        return _load(build())
+
+
+def _load(path):
+    """The library at ``path``, every function's argtypes and restype
+    set."""
+    lib = ctypes.CDLL(path)
     p, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
                         ctypes.c_int)
     lib.cyt_pool_leaky.argtypes = [p, p, i64, i64, i64, i64, f32, i32, p]

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import profiling
 from .boxes import iou_xy
 
 
@@ -110,11 +111,24 @@ def to_flat_host(decoded, image_hw=None, img_size=None, with_classes=True):
 def to_flat_host_with_extras(decoded, extras, image_hw=None, img_size=None,
                              with_classes=True):
     """`to_flat_host` plus extra per-slot arrays flattened in the same
-    order.  Returns ((image_indices, xy, classes_or_None), flat_extras)."""
-    conf, xy, cls, valid, idx = (decoded[k].cpu().numpy() for k in (
-        "conf", "xy", "classes", "valid", "idx"))
-    extras = {k: v.cpu().numpy() for k, v in (extras or {}).items()}
+    order.  Returns ((image_indices, xy, classes_or_None), flat_extras).
 
+    Recorded as a ``cyt.fetch`` span, the copies to the host (which wait
+    for the card) as ``cyt.fetch.wait`` and the per-image unpacking as
+    ``cyt.fetch.unpack`` (`profiling`)."""
+    with profiling.span(profiling.FETCH, images=len(decoded["conf"])):
+        with profiling.span(profiling.FETCH_WAIT):
+            conf, xy, cls, valid, idx = (decoded[k].cpu().numpy() for k in (
+                "conf", "xy", "classes", "valid", "idx"))
+            extras = {k: v.cpu().numpy() for k, v in (extras or {}).items()}
+        with profiling.span(profiling.FETCH_UNPACK):
+            return _unpack(conf, xy, cls, valid, idx, extras, image_hw,
+                           img_size, with_classes)
+
+
+def _unpack(conf, xy, cls, valid, idx, extras, image_hw, img_size,
+            with_classes):
+    """The host arrays of a decode, flattened image by image."""
     img_idx, boxes, classes = [], [], []
     extras_out = {k: [] for k in extras}
     for i in range(conf.shape[0]):

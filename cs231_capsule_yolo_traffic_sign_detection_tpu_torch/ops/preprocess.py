@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import profiling
+
 
 def preprocess_batch(images_u8, size):
     """(B, H, W, 3) uint8 tensor -> (B, size, size, 3) float32, NHWC."""
@@ -24,11 +26,25 @@ def preprocess_batch(images_u8, size):
 
 
 def preprocess_images(images, size, device):
-    """List of host uint8 frames (any sizes) -> device batch, NHWC f32."""
-    if len({im.shape for im in images}) == 1:
-        return preprocess_batch(
-            torch.from_numpy(np.stack(images)).to(device), size)
-    return torch.cat([
-        preprocess_batch(torch.from_numpy(np.ascontiguousarray(im))[None]
-                         .to(device), size)
-        for im in images])
+    """List of host uint8 frames (any sizes) -> device batch, NHWC f32.
+
+    Recorded as a ``cyt.stage`` span, its ``np.stack`` as
+    ``cyt.stage.gather`` and each copy to ``device`` as
+    ``cyt.stage.copy`` (`profiling`)."""
+    with profiling.span(profiling.STAGE, images=len(images)):
+        if len({im.shape for im in images}) == 1:
+            with profiling.span(profiling.STAGE_GATHER):
+                host = torch.from_numpy(np.stack(images))
+            return preprocess_batch(_copy(host, device), size)
+        return torch.cat([
+            preprocess_batch(_copy(torch.from_numpy(
+                np.ascontiguousarray(im))[None], device), size)
+            for im in images])
+
+
+def _copy(host, device):
+    """``host.to(device)`` as a ``cyt.stage.copy`` span of the bytes it
+    moves (0 when ``device`` is the host)."""
+    moved = 0 if torch.device(device).type == "cpu" else host.nbytes
+    with profiling.span(profiling.STAGE_COPY, bytes=moved):
+        return host.to(device)

@@ -41,7 +41,7 @@ import itertools
 import numpy as np
 import torch
 
-from . import export, viz
+from . import export, profiling, viz
 from .data.loader import center_rgb
 from .device import compute_dtype, module_dtype, resolve_device
 from .models import CapsuleNet, ConvNet, DarkCapsuleNet, DarkNet
@@ -141,7 +141,8 @@ def _serve_batches(det, images, params, dev, mesh=None):
     18 activation scales calibrated on the FIRST batch, then the
     int8-resident chain (ops/quant.py: im2col and s8 x s8 -> s32
     products, int8 pools; neither K1 nor K2 runs); under a mesh every
-    rank calibrates on the whole first batch."""
+    rank calibrates on the whole first batch.  Each batch's work is a
+    ``cyt.serve.batch`` span (`profiling`), ``index`` its number."""
     dtype = compute_dtype(params.get("compute_dtype", "float32"))
     nb, nc = int(params.n_boxes), int(params.n_classes)
     size, bs = int(params.darknet_input), int(params.batch_size)
@@ -149,19 +150,20 @@ def _serve_batches(det, images, params, dev, mesh=None):
     p = None if dtype == torch.int8 else prepare_serving(sd, dtype)
     q = None
     for i in range(0, len(images), bs):
-        n = len(images[i:i + bs])
-        a, b = (0, n) if mesh is None else par.batch_rows(n, mesh)
-        xb = preprocess_images(images[i + a:i + b], size, dev)
-        if p is not None:
-            yb = darknet_serving_apply(p, xb, n_boxes=nb, n_classes=nc,
-                                       dtype=dtype)
-        else:
-            if q is None:   # static int8: calibrated once, on the whole batch
-                x_cal = xb if (a, b) == (0, n) else preprocess_images(
-                    images[i:i + bs], size, dev)
-                q = quant.quantize_darknet(sd, x_cal=x_cal)
-            yb = quant.darknet_int8_resident_apply(q, xb, n_boxes=nb,
-                                                   n_classes=nc)
+        with profiling.span(profiling.SERVE_BATCH, index=i // bs):
+            n = len(images[i:i + bs])
+            a, b = (0, n) if mesh is None else par.batch_rows(n, mesh)
+            xb = preprocess_images(images[i + a:i + b], size, dev)
+            if p is not None:
+                yb = darknet_serving_apply(p, xb, n_boxes=nb, n_classes=nc,
+                                           dtype=dtype)
+            else:
+                if q is None:   # static int8: calibrated once, on the batch
+                    x_cal = xb if (a, b) == (0, n) else preprocess_images(
+                        images[i:i + bs], size, dev)
+                    q = quant.quantize_darknet(sd, x_cal=x_cal)
+                yb = quant.darknet_int8_resident_apply(q, xb, n_boxes=nb,
+                                                       n_classes=nc)
         yield xb, yb
 
 

@@ -36,10 +36,9 @@ route weights' too.  Every loss divides by its local batch, so equal
 shards give the global mean.
 """
 
-import time
-
 import torch
 
+from .. import profiling
 from ..losses import capsule_loss, cnn_loss, dark_loss, darkcapsule_loss
 from ..ops import input_stage, pool, routing
 from ..parallel.collectives import all_reduce_grads
@@ -168,7 +167,7 @@ class GraphCapture:
     capture) and on which it is captured, one memory pool, and the
     generators every graph registers (without registration every replay
     would draw the masks of the capture).  ``seconds``: the host time its
-    captures took."""
+    captures took, the sum of their ``cyt.setup.capture`` spans."""
 
     def __init__(self, device, generators=()):
         self.stream = torch.cuda.Stream(device)
@@ -191,10 +190,10 @@ class GraphCapture:
         for g in self.generators:
             graph.register_generator_state(g)
         before = [w.launches for w in COUNTED]
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            fn()
-        self.seconds += time.perf_counter() - t0
+        with profiling.span(profiling.SETUP_CAPTURE) as span:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                fn()
+        self.seconds += span.seconds
         launches = []
         for w, n in zip(COUNTED, before):
             launches.append((w, w.launches - n))
@@ -215,7 +214,9 @@ class Epoch:
     batch and replays the graph for the others; later calls replay every
     batch, after refilling the table and the counter.  Without it (the
     CPU) every batch runs eagerly: the plain version of the graph.  The
-    kernels' launch counts grow by the capture's count at each replay."""
+    kernels' launch counts grow by the capture's count at each replay.
+    The first call's first batch (and the capture) is a
+    ``cyt.setup.first_call`` span (`profiling`)."""
 
     def __init__(self, step, opt=None, capture=None):
         self.step, self.opt, self.capture = step, opt, capture
@@ -260,12 +261,18 @@ class Epoch:
         if lr is not None:
             set_lr(self.opt, lr)
         done = 0
-        if self.capture is not None and self.graph is None:
-            self.capture.warm_up(self._body)
+        if self.slots is None and table.shape[0]:
+            with profiling.span(profiling.SETUP_FIRST_CALL):
+                if self.capture is None:
+                    self._body()
+                else:
+                    self.capture.warm_up(self._body)
+                if on_batch is not None:
+                    on_batch()
+                if self.capture is not None:
+                    self.graph, self.launches = self.capture.capture(
+                        self._body)
             done = 1
-            if on_batch is not None:
-                on_batch()
-            self.graph, self.launches = self.capture.capture(self._body)
         batch = self._body if self.capture is None else self._replay
         for _ in range(done, table.shape[0]):
             batch()
