@@ -28,10 +28,13 @@ The spans, where they sit:
 
   cyt.serve.batch       a batch of `predict._serve_batches` (``index``),
                         the CLI's serving loop; parents its stage spans
-  cyt.stage             `ops/preprocess.py:preprocess_images` (``images``)
-  cyt.stage.gather      its ``np.stack`` of the frames
+  cyt.stage             `ops/preprocess.py:preprocess_images` (``images``;
+                        ``pinned``, those staged through pinned memory)
+  cyt.stage.gather      its ``np.stack`` of the frames; on a card, each
+                        chunk's write into pinned memory
   cyt.stage.copy        each ``.to(device)`` of host frames (``bytes``,
-                        0 when the device is the host)
+                        0 when the device is the host); on a card, each
+                        chunk's non-blocking copy, its enqueue alone
   cyt.fetch             `ops/decode.py:to_flat_host_with_extras`
                         (``images``)
   cyt.fetch.wait        its ``.cpu()`` of the decode arrays and extras
