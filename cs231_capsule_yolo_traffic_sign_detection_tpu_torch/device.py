@@ -8,7 +8,9 @@ when a caller asks for it (the tests do).
 Precision: cuDNN runs float32 convolutions in TF32 unless told not to,
 which drifts about 1e-3 from the JAX reference.  `resolve_device`
 turns TF32 off for convolutions and matrix products whenever it hands
-out a CUDA device, so the f32 path is full float32.
+out a CUDA device, and `keep_f32` does the same for the serving entries
+(export.py) whenever a model they are given is on a card, so the f32
+path is full float32.
 """
 
 import torch
@@ -25,11 +27,23 @@ def resolve_device(device="cuda"):
             raise RuntimeError(
                 "device 'cuda' requested but torch.cuda.is_available() is "
                 "False; pass device='cpu' explicitly to run on the CPU")
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        _tf32_off()
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: cuda | cpu")
     return dev
+
+
+def _tf32_off():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def keep_f32(*modules):
+    """Turn TF32 off, as `resolve_device` does, when any parameter of
+    ``modules`` is on a card: a model moved there with ``.cuda()`` serves
+    in full float32 too."""
+    if any(p.is_cuda for m in modules for p in m.parameters()):
+        _tf32_off()
 
 
 def compute_dtype(name):

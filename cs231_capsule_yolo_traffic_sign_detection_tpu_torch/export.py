@@ -52,7 +52,7 @@ from torch.export.passes import move_to_device_pass
 
 from . import profiling
 from .data.loader import center_rgb
-from .device import compute_dtype, resolve_device
+from .device import compute_dtype, keep_f32, resolve_device
 from .models import ConvNet
 # importing ops.input_stage, ops.pool and ops.routing registers the cyt::*
 # operators an artifact's graph calls
@@ -84,8 +84,10 @@ def make_detector_fn(model, *, n_boxes, n_classes, img_size, conf_th=0.5,
     1, K1 at the other four pools, in ``dtype``) on ``model``'s weights,
     then the full-width grid decode (every g*g*B candidate) and, with
     ``use_nms``, the greedy NMS.  The build is a ``cyt.setup.prepare``
-    span, the fn's first call a ``cyt.setup.first_call`` (`profiling`)."""
+    span, the fn's first call a ``cyt.setup.first_call`` (`profiling`).
+    A model on a card serves in full float32 (`device.keep_f32`)."""
     with profiling.span(profiling.SETUP_PREPARE):
+        keep_f32(model)
         p = prepare_serving(model.state_dict(), dtype)
 
     def fn(x):
@@ -101,8 +103,9 @@ def make_classifier_fn(model):
     """Classifier serving fn: x (B, 32, 32, 3) f32 -> (scores f32,
     argmax).  ``model`` (CapsuleNet or ConvNet, put in eval mode) serves
     in its own dtype, CapsuleNet through its routing impl.  Spans as
-    `make_detector_fn`'s."""
+    `make_detector_fn`'s, full float32 on a card as there."""
     with profiling.span(profiling.SETUP_PREPARE):
+        keep_f32(model)
         model.eval()
 
     def fn(x):
@@ -162,10 +165,17 @@ def _two_stage_tail(x, y, *, classify, n_boxes, n_classes, img_size,
     boxes of each image by confidence are cropped from x (those at or
     under ``conf_th`` as zeros).  Returns the decode dict with
     ``class_scores`` (B, max_crops, n_cls) f32 and, with ``with_grid``,
-    the grid."""
-    d = _decode(y, n_boxes=n_boxes, n_classes=n_classes, img_size=img_size,
-                max_boxes=max_crops, conf_th=conf_th, use_nms=use_nms)
-    scores = classify(_crops(x, d, cap_input)).float()
+    the grid.  Recorded as a ``cyt.tail`` span (``crops``, B x
+    max_crops), the decode, crop and centring as ``cyt.tail.crop`` and
+    the classifier's call as ``cyt.tail.classify`` (`profiling`)."""
+    with profiling.span(profiling.TAIL, crops=x.shape[0] * max_crops):
+        with profiling.span(profiling.TAIL_CROP):
+            d = _decode(y, n_boxes=n_boxes, n_classes=n_classes,
+                        img_size=img_size, max_boxes=max_crops,
+                        conf_th=conf_th, use_nms=use_nms)
+            crops = _crops(x, d, cap_input)
+        with profiling.span(profiling.TAIL_CLASSIFY):
+            scores = classify(crops).float()
     out = dict(d, class_scores=scores.reshape(x.shape[0], max_crops, -1))
     if with_grid:
         out["grid"] = y
@@ -198,19 +208,22 @@ def make_two_stage_fn(det_model, cls_model, *, n_boxes, n_classes, img_size,
     own dtype (K3 for CapsuleNet under the pallas routing).  Crops are
     sampled from the img_size input, not the full-resolution frame, and
     only the top ``max_crops`` boxes are classified, as in the JAX
-    package.  For the int8 detector use `make_int8_two_stage_fn`."""
-    p = prepare_serving(det_model.state_dict(), dtype)
-    tail = dict(classify=_make_classify(cls_model), n_boxes=n_boxes,
-                n_classes=n_classes, img_size=img_size, cap_input=cap_input,
-                max_crops=max_crops, conf_th=conf_th, use_nms=use_nms,
-                with_grid=with_grid)
+    package.  Spans and float32 on a card as `make_detector_fn`'s.  For
+    the int8 detector use `make_int8_two_stage_fn`."""
+    with profiling.span(profiling.SETUP_PREPARE):
+        keep_f32(det_model, cls_model)
+        p = prepare_serving(det_model.state_dict(), dtype)
+        tail = dict(classify=_make_classify(cls_model), n_boxes=n_boxes,
+                    n_classes=n_classes, img_size=img_size,
+                    cap_input=cap_input, max_crops=max_crops,
+                    conf_th=conf_th, use_nms=use_nms, with_grid=with_grid)
 
     def fn(x):
         y = darknet_serving_apply(p, x, n_boxes=n_boxes, n_classes=n_classes,
                                   dtype=dtype)
         return _two_stage_tail(x, y, **tail)
 
-    return fn
+    return profiling.first_call(fn)
 
 
 def make_int8_two_stage_fn(qparams, cls_model, *, n_boxes, n_classes,

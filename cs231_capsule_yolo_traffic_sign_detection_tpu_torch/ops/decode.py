@@ -113,17 +113,22 @@ def to_flat_host_with_extras(decoded, extras, image_hw=None, img_size=None,
     """`to_flat_host` plus extra per-slot arrays flattened in the same
     order.  Returns ((image_indices, xy, classes_or_None), flat_extras).
 
-    Recorded as a ``cyt.fetch`` span, the copies to the host (which wait
-    for the card) as ``cyt.fetch.wait`` and the per-image unpacking as
+    Recorded as a ``cyt.fetch`` span (``images``; ``boxes``, those it
+    unpacked), the copies to the host (which wait for the card) as
+    ``cyt.fetch.wait`` and the per-image unpacking as
     ``cyt.fetch.unpack`` (`profiling`)."""
-    with profiling.span(profiling.FETCH, images=len(decoded["conf"])):
+    with profiling.span(profiling.FETCH,
+                        images=len(decoded["conf"])) as fetch:
         with profiling.span(profiling.FETCH_WAIT):
             conf, xy, cls, valid, idx = (decoded[k].cpu().numpy() for k in (
                 "conf", "xy", "classes", "valid", "idx"))
             extras = {k: v.cpu().numpy() for k, v in (extras or {}).items()}
         with profiling.span(profiling.FETCH_UNPACK):
-            return _unpack(conf, xy, cls, valid, idx, extras, image_hw,
-                           img_size, with_classes)
+            out = _unpack(conf, xy, cls, valid, idx, extras, image_hw,
+                          img_size, with_classes)
+        if fetch is not None:
+            fetch.args["boxes"] = len(out[0][0])
+        return out
 
 
 def _unpack(conf, xy, cls, valid, idx, extras, image_hw, img_size,

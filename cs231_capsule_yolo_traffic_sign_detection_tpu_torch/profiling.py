@@ -36,13 +36,19 @@ The spans, where they sit:
                         0 when the device is the host); on a card, each
                         chunk's non-blocking copy, its enqueue alone
   cyt.fetch             `ops/decode.py:to_flat_host_with_extras`
-                        (``images``)
+                        (``images``; ``boxes``, the boxes it unpacked)
   cyt.fetch.wait        its ``.cpu()`` of the decode arrays and extras
   cyt.fetch.unpack      its per-image loop and concatenation
+  cyt.tail              the fused two-stage tail after the detector
+                        (`export._two_stage_tail`; ``crops``, batch x
+                        max_crops, the classifier's batch)
+  cyt.tail.crop         its top-k decode, crop and centring
+  cyt.tail.classify     its classifier call (CapsuleNet: conv1, the
+                        primary capsules, K3)
   cyt.setup.build       `ops/_build.library`: digest, nvcc if needed, load
   cyt.setup.init        the seeded initialisers (`models/init.py`)
   cyt.setup.prepare     building a serving fn (`export.make_detector_fn`,
-                        `make_classifier_fn`)
+                        `make_classifier_fn`, `make_two_stage_fn`)
   cyt.setup.first_call  the first call of each such fn, and of each
                         `train.steps.Epoch` (its eager batch and capture)
   cyt.setup.capture     `train.steps.GraphCapture.capture`
@@ -65,6 +71,8 @@ STAGE, STAGE_GATHER, STAGE_COPY = ("cyt.stage", "cyt.stage.gather",
                                    "cyt.stage.copy")
 FETCH, FETCH_WAIT, FETCH_UNPACK = ("cyt.fetch", "cyt.fetch.wait",
                                    "cyt.fetch.unpack")
+TAIL, TAIL_CROP, TAIL_CLASSIFY = ("cyt.tail", "cyt.tail.crop",
+                                  "cyt.tail.classify")
 SETUP_BUILD, SETUP_INIT, SETUP_PREPARE = ("cyt.setup.build", "cyt.setup.init",
                                           "cyt.setup.prepare")
 SETUP_FIRST_CALL, SETUP_CAPTURE = "cyt.setup.first_call", "cyt.setup.capture"

@@ -531,6 +531,30 @@ def test_convnet_on_card_matches_cpu(card, tmp_path):
                                    msg=lambda m: f"{name}: {m}")
 
 
+@pytest.mark.parametrize("entry", ["detector", "classifier", "two_stage"])
+def test_serving_entries_keep_f32_on_the_card(card, entry):
+    """A model moved to the card with .cuda(), built into a serving fn
+    with TF32 on and no `resolve_device`: the entry turns TF32 off."""
+    det, cls = DarkNet(1, 43, seed=2).cuda(), CapsuleNet(43, seed=3).cuda()
+    build = {
+        "detector": lambda: export.make_detector_fn(
+            det, n_boxes=1, n_classes=43, img_size=64),
+        "classifier": lambda: export.make_classifier_fn(cls),
+        "two_stage": lambda: export.make_two_stage_fn(
+            det, cls, n_boxes=1, n_classes=43, img_size=64)}[entry]
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        build()
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 def test_crop_resize_bilinear_on_card_matches_cpu(card):
     imgs = torch.rand((2, 96, 120, 3), generator=card, device="cuda") * 255
     boxes = torch.tensor([[[10.0, 20.0, 74.0, 90.0], [-20.0, -10.0, 40.0,

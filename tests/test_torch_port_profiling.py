@@ -139,7 +139,7 @@ def test_staging_and_fetch_give_the_same_outputs_traced():
                  profiling.FETCH_UNPACK):
         assert names.count(name) == 1
     fetch, = [s for s in profiling.spans() if s.name == profiling.FETCH]
-    assert fetch.args == {"images": 3}
+    assert fetch.args == {"images": 3, "boxes": len(out_on[0])}
 
 
 def test_a_traced_serving_window_reads_the_program_s_spans():
