@@ -177,11 +177,12 @@ after):
    four times a call (none under int8), the confidences against
    `dark_detect`'s y_hat (phase 5's bands), equality with the live fn,
    the ms of a batch of artifact and live fn in turns;
-26. the CapsuleNet artifact at batch 64, f32 and bf16 (K3 once a call;
-   scores against `class_pred`, K3's bands), and the fused two-stage
-   artifacts with phase 8's CapsuleNet and a ConvNet at max_crops 16, f32,
-   bf16 and int8 (K2 x1, K1 x4 a batch but int8, K3 x1 with CapsuleNet;
-   class scores against the live fused path, K3's bands); ms in turns;
+26. the CapsuleNet artifact at batch 64, f32 and bf16 (K3 once a call,
+   K5 once in f32; scores against `class_pred`, K3's bands), and the
+   fused two-stage artifacts with phase 8's CapsuleNet and a ConvNet at
+   max_crops 16, f32, bf16 and int8 (K2 x1, K1 x4 a batch but int8, K3
+   x1 with CapsuleNet; class scores against the live fused path, K3's
+   bands); ms in turns;
 27. --routing: CapsuleNet at batch 64, serving and one train step under
    pallas (K3 x1, K4 x1) and xla (no launch), f32 and bf16: scores and
    gradients in K3's and K4's bands of each other, both times; auto
@@ -261,14 +262,25 @@ after):
    `loader.load_data`; `tools.capsule_interpret` on the card from a
    seeded CapsuleNet checkpoint: K3 launched once (the crop's routing)
    and no other kernel, its capsule and its 177 PNGs against the same
-   tool on the CPU.
+   tool on the CPU;
+34. K5 (CapsuleNet's primary capsules, csrc/primary_caps.cu) on phase
+   9's CapsuleNet's conv1 map at B 64 and 512: its launch plan, against
+   the plain version (rtol/atol 1e-5) and two calls bit-identical, each
+   just after a NaN fill of shared memory; its time beside its bound
+   (three TF32 products), the plain version's and the library
+   yardstick's (cuDNN's conv and the squash), the device time of each
+   kernel of a call; its launches on class_pred (f32: once a batch;
+   bf16: never), a forward with a gradient (never) and the fused
+   two-stage fn (once a batch).  (K5 is counted apart from the six
+   kernels: the capsule paths above also launch it.)
 Phases 29-33 print their walls.
 
 The kernels line's K1 and K2 launches count phases 5, 18, 25 and 30
 (f32), K3's phases 8, 26, 30, 32 (its f32 captured capsule runs) and 33
 (capsule_interpret), K4's
 phases 11, 27, 30 and 32, K3g's and K4g's phase 33's checked pallas
-forwards and steps (its timing loops not counted).  The line
+forwards and steps (its timing loops not counted), K5's phase 34's
+f32 class_pred.  The line
 before the last is the JSON ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -308,7 +320,7 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models.registry \
     import resolve_routing_impl
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
     _build, boxes as box_ops, capsule as caps, crop, decode,
-    input_stage as ist, pool, quant, routing)
+    input_stage as ist, pool, primary_caps as pc, quant, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops.preprocess \
     import preprocess_images
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.parallel import (
@@ -2692,8 +2704,13 @@ def run_classifier_artifacts(frames, crops, dark_dir, classifiers, root):
         fn = export.make_classifier_fn(model)
         call, t_exp, t_load, mb = export_and_load(
             fn, (32, 32, 3), root, f"capsule_{dtype}")
-        require(kernel_nodes(call) == {"routing": 1}, "capsule nodes")
+        k5 = {"primary_caps": 1} if dtype == "float32" else {}
+        require(kernel_nodes(call) == dict(k5, routing=1), "capsule nodes")
+        pc.primary_caps.launches = 0
         (scores, _), launches = counted(call, x64)
+        require(pc.primary_caps.launches == len(k5),
+                f"capsule {dtype} artifact: K5 launches "
+                f"{pc.primary_caps.launches}")
         require(launches == launch_counts(routing=1),
                 f"capsule {dtype} artifact: launches {launches}")
         y_hat, _ = predict.class_pred(crops[:CAPS_BATCH],
@@ -3361,14 +3378,21 @@ def check_scan_pair(label, p, data, mesh=None, launches=None):
 
 def kernel_profile(fn, logdir):
     """Kernel time (ms) and each kernel's count over one ``fn()``, traced
-    by the port's `profiling.trace` into ``logdir``."""
+    by the port's `profiling.trace` into ``logdir``.  A session can leave
+    its first ~2 ms of device work unrecorded (seen late in a whole run:
+    the first kernels of a captured epoch's first replay missing from
+    every session), so a ~10-ms spin kernel opens it, left out of the
+    counts and the time."""
     with profiling.trace(logdir):
+        torch.cuda._sleep(20_000_000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in profiling.trace.last.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0
-               and not e.key.startswith("Optimizer.")]
+               and not e.key.startswith("Optimizer.")
+               and "spin_kernel" not in e.key]
     return (sum(e.self_device_time_total for e in kernels) / 1e3,
             {e.key: e.count for e in kernels})
 
@@ -4065,6 +4089,110 @@ def run_variants(root):
     return errs, counted, times
 
 
+def primary_caps_bound(b):
+    """K5's least time at ``b`` crops: operations, as three TF32 products
+    of the conv's 2 x b x 81 x 128 x 16384 (3xTF32); bytes are conv1's
+    map, the weights and bias read once and the capsules written once."""
+    flop = 2 * b * 81 * 128 * 256 * 64
+    n_bytes = 4 * (b * 256 * 24 * 24 + 128 * 256 * 64 + 128
+                   + b * 1296 * 8)
+    return bound_ms(n_bytes, 3 * flop, "tf32")
+
+
+def run_primary_caps(model, crops, frames, dark_dir, caps_dir, cparams):
+    """Phase 34: K5 (csrc/primary_caps.cu) on ``model``'s conv1 map of the
+    crops (tiled to 512) at B 64 and 512, channels-last as cuDNN leaves
+    it: its launch plan; against the plain version (rtol/atol 1e-5) and
+    two calls bit-identical, each call just after a NaN fill of shared
+    memory; its time beside its bound, the plain version's (conv2d,
+    reshape, transpose, copy, squash) and the library yardstick's
+    (cuDNN's conv and the squash over its channel groups, no layout
+    copy), with the device time of each kernel of a call; then its
+    launches on the main paths: class_pred over the crops in f32 (once a
+    batch) and bf16 (never), a forward with a gradient (never) and the
+    fused two-stage fn (once a batch of 32 frames).  Returns K5's row
+    of the kernels line."""
+    x_all = torch.from_numpy(np.concatenate(
+        [crops] * -(-512 // len(crops)))[:512]).cuda()
+    pcm = model.primary_capsules
+    w = torch.cat([m.weight for m in pcm.capsules]).detach()
+    b = torch.cat([m.bias for m in pcm.capsules]).detach()
+    wp = pc.prepare_weights(w)
+    row = {}
+    for bsz in (CAPS_BATCH, 512):
+        with torch.inference_mode():
+            h = F.relu(F.conv2d(x_all[:bsz].permute(0, 3, 1, 2),
+                                model.conv1.weight, model.conv1.bias))
+        require(h.is_contiguous(memory_format=torch.channels_last),
+                "conv1's map is not channels-last")
+        tiles, splits, ws = pc.plan(bsz, torch.cuda.current_device())
+        print(f"[config] K5 at B {bsz}: {tiles} row tiles, K split in "
+              f"{splits}, workspace {ws * 4 / 1e6:.2f} MB")
+        runs = []
+        for _ in range(2):
+            _build.fill_shared_memory(float("nan"))
+            runs.append(pc.primary_caps(h, wp, b))
+        want = pc.primary_caps_plain(h, w, b, 8, 2)
+        torch.cuda.synchronize()
+        err = (runs[0] - want).abs().max().item()
+        torch.testing.assert_close(runs[0], want, rtol=1e-5, atol=1e-5)
+        require(torch.equal(runs[0], runs[1]), "K5: two calls differ")
+
+        def library():
+            y = F.conv2d(h, w, b, stride=2)
+            return caps.squash(y.reshape(bsz, 8, 1296), dim=1)
+
+        ms = time_ms(lambda: pc.primary_caps(h, wp, b))
+        plain_ms = time_ms(lambda: pc.primary_caps_plain(h, w, b, 8, 2))
+        library_ms = time_ms(library)
+        bound, by = primary_caps_bound(bsz)
+        print(f"[time] K5 primary capsules B {bsz}: {ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}; {bound / ms * 100:.1f}%), plain "
+              f"{plain_ms:.4f} ms, library (cuDNN conv + squash) "
+              f"{library_ms:.4f} ms; max_abs_err {err:.3g} against the "
+              f"plain version; two calls bit-identical ({SMI})")
+        launch_breakdown(lambda: pc.primary_caps(h, wp, b), f"K5 B {bsz}")
+        if bsz == CAPS_BATCH:
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": by, "library_ms": library_ms,
+                   "max_abs_err": err}
+
+    # the main paths: each of the six kernels' counts as the phases above
+    # have them, K5's beside
+    launches = {}
+    n_batches = -(-len(crops) // CAPS_BATCH)
+    for dtype in ("float32", "bfloat16"):
+        cparams.compute_dtype = dtype
+        pc.primary_caps.launches = 0
+        predict.class_pred(crops, caps_dir, cparams, "last", device="cuda")
+        launches[f"class_pred {dtype}"] = pc.primary_caps.launches
+    cparams.compute_dtype = "float32"
+    require(launches["class_pred float32"] == n_batches
+            and launches["class_pred bfloat16"] == 0,
+            f"K5 launches on class_pred: {launches}")
+    pc.primary_caps.launches = 0
+    with torch.enable_grad():
+        model.train()(x_all[:CAPS_BATCH])
+    model.eval()
+    launches["forward with a gradient"] = pc.primary_caps.launches
+    dparams, _ = two_stage_params("capsule", "float32")
+    det = predict.restore_darknet(dparams, dark_dir, "last").cuda()
+    fn = export.make_two_stage_fn(det, model, n_boxes=1, n_classes=43,
+                                  img_size=448, max_crops=MAX_CROPS)
+    xb = preprocess_images(list(frames[:BATCH]), 448, "cuda")
+    pc.primary_caps.launches = 0
+    with torch.inference_mode():
+        fn(xb)
+    launches["fused two-stage batch"] = pc.primary_caps.launches
+    require(launches["forward with a gradient"] == 0
+            and launches["fused two-stage batch"] == 1,
+            f"K5 launches: {launches}")
+    print(f"[primary_caps] K5 launches: {launches} ({n_batches} class_pred "
+          f"batches of {CAPS_BATCH})")
+    row["launches"] = launches["class_pred float32"]
+    return row
+
+
 def main():
     global SMI
     # phase 1
@@ -4242,6 +4370,10 @@ def main():
         os.path.join(HERE, "build", "chip_smoke", "variants"))
     k3g, k4g = k34g["darkcapsule3"]
 
+    # phase 34: K5, CapsuleNet's primary capsules (phase 9's CapsuleNet)
+    k5 = run_primary_caps(cmodel, crops, frames, model_dir, cmodel_dir,
+                          cparams)
+
     # K1 and K2 on the main paths: darknet_r's (phase 5) and darknet_d's
     # (phase 18) serving, the detector artifacts' (phase 25) and mesh
     # serving (phase 30, f32); K3 on the capsule slice (phase 8), its
@@ -4314,6 +4446,14 @@ def main():
          "max_abs_err": k3g_err, "ms": k3g["ms"],
          "plain_ms": k3g["plain_ms"], "bound_ms": k3g["bound_ms"],
          "bound_by": k3g["bound_by"], "library_ms": None},
+        # K5 replaces no TPU kernel (the JAX package leaves this conv to
+        # XLA); its row at B 64, launches on phase 34's f32 class_pred
+        {"name": "primary_caps", "route": "cuda",
+         "source": f"{pkg}/csrc/primary_caps.cu", "replaces": None,
+         "launches": k5["launches"], "max_abs_err": k5["max_abs_err"],
+         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": k5["library_ms"]},
         {"name": "routing_bwd_general", "route": "cuda",
          "source": f"{pkg}/csrc/routing_general_bwd.cu",
          "replaces": f"{jax_pkg}/ops/routing_pallas.py:447",

@@ -21,8 +21,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.capsule import (capsule_norm, compute_priors, dynamic_routing,
-                           node_sharded_routing, routed_single_capsule,
-                           squash)
+                           node_sharded_routing, routed_single_capsule)
+from ..ops.primary_caps import (prepare_weights, primary_caps,
+                                primary_caps_plain, takes as takes_k5)
 from ..parallel.collectives import NodeShard
 from ..ops.routing import routed_capsules
 from .init import init_capsulenet
@@ -30,7 +31,12 @@ from .layers import ReconDecoder
 
 
 class PrimaryCapsules(nn.Module):
-    """Conv -> capsules: (B, 256, H, W) -> squashed (B, 16*h*w, 8)."""
+    """Conv -> capsules: (B, 256, H, W) -> squashed (B, 16*h*w, 8).  An
+    f32 call that needs no gradient at CapsuleNet's geometry
+    (`ops.primary_caps.takes`) runs K5, ``torch.ops.cyt.primary_caps``
+    (the CUDA kernel on a card, the plain version on the CPU), on the
+    weights laid out for it once per version; every other call
+    (training, bf16, f64, other geometries) the plain composition."""
 
     def __init__(self, in_channels=256, n_caps=8, out_c=16, kernel=8,
                  stride=2):
@@ -39,16 +45,53 @@ class PrimaryCapsules(nn.Module):
         self.capsules = nn.ModuleList(
             nn.Conv2d(in_channels, out_c, kernel, stride)
             for _ in range(n_caps))
+        self._k5_key, self._k5_w = None, None
 
     def forward(self, x, dtype=torch.float32):
-        # the eight convs as one: output channel j*16 + c is conv j's c
-        w = torch.cat([m.weight for m in self.capsules]).to(dtype)
-        b = torch.cat([m.bias for m in self.capsules]).to(dtype)
-        y = F.conv2d(x.to(dtype), w, b, stride=self.stride).to(
-            torch.promote_types(dtype, torch.float32))  # f32, f64 kept
-        # (B, j*16 + c, p) -> (B, c*81 + p, j): vector j per node (c, p)
-        y = y.reshape(y.shape[0], len(self.capsules), -1).transpose(1, 2)
-        return squash(y.contiguous())
+        if takes_k5(self.capsules, x, dtype):
+            wp, b = self._k5_weights()
+            if x.is_cuda:  # no copy: cuDNN leaves conv1's map channels-last
+                x = x.contiguous(memory_format=torch.channels_last)
+            return primary_caps(x, wp, b)
+        w, b = self._stacked()
+        return primary_caps_plain(x, w, b, len(self.capsules), self.stride,
+                                  dtype)
+
+    def _stacked(self):
+        """The eight convs as one: output channel j*16 + c is conv j's c."""
+        return (torch.cat([m.weight for m in self.capsules]),
+                torch.cat([m.bias for m in self.capsules]))
+
+    def _k5_weights(self):
+        """The stacked weights as K5 reads them (`prepare_weights`) and
+        the stacked bias, kept until a parameter changes (in place, or
+        moved).  Under torch.export they are part of the traced program,
+        and under a CUDA graph's capture they are recorded in the graph
+        and not kept: a replay reads the weights as they are then (the
+        train graph's Adam moves them without a version bump:
+        `drop_k5_copy`)."""
+        params = [p for m in self.capsules for p in (m.weight, m.bias)]
+
+        def make():
+            w, b = self._stacked()
+            return prepare_weights(w), b
+
+        if torch.compiler.is_exporting() or (
+                params[0].is_cuda
+                and torch.cuda.is_current_stream_capturing()):
+            return make()
+        key = tuple((p.data_ptr(), p._version) for p in params) + (
+            params[0].device,)
+        if key != self._k5_key:
+            with torch.no_grad():
+                self._k5_w = make()
+            self._k5_key = key
+        return self._k5_w
+
+    def drop_k5_copy(self):
+        """Forget K5's copy of the weights: they changed where their
+        version counters do not see it (a CUDA graph's replay)."""
+        self._k5_key, self._k5_w = None, None
 
 
 class CapsuleRouting(nn.Module):

@@ -25,7 +25,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 SOURCES = ("pool_leaky.cu", "input_stage.cu", "routing.cu",
            "routing_bwd.cu", "routing_general.cu", "routing_general_bwd.cu",
-           "fill_shared.cu")
+           "primary_caps.cu", "fill_shared.cu")
 HEADERS = ("common.cuh", "hopper.cuh", "routing_general.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -136,6 +136,10 @@ def _load(path):
     lib.cyt_routing_bwd_general_plan.argtypes = [i64, i64, i64, i64, i64, i32,
                                                  i64, ctypes.POINTER(i32)]
     lib.cyt_routing_bwd_general_plan.restype = i32
+    lib.cyt_primary_caps_plan.argtypes = [i64, ctypes.POINTER(i64)]
+    lib.cyt_primary_caps_plan.restype = i32
+    lib.cyt_primary_caps.argtypes = [p, p, p, p, p, i64, i32, p]
+    lib.cyt_primary_caps.restype = i32
     lib.cyt_fill_shared.argtypes = [f32, p]
     lib.cyt_fill_shared.restype = i32
     return lib

@@ -87,7 +87,7 @@ from ..metrics.classification import recog_acc
 from ..metrics.detection import (darkcapsule_cell_f1, detect_acc,
                                  detect_and_recog_acc)
 from ..models import CapsuleNet, ConvNet, DarkCapsuleNet, DarkNet
-from ..models.capsule_net import CapsuleRouting
+from ..models.capsule_net import CapsuleRouting, PrimaryCapsules
 from ..models.darknet import freeze_darknet, load_darknet19_npz
 from ..models.registry import resolve_routing_impl
 from ..parallel import mesh as par
@@ -510,6 +510,8 @@ class Trainer:
             for m in self.model.modules():
                 if isinstance(m, CapsuleRouting):
                     m.drop_bf16_copy()
+                elif isinstance(m, PrimaryCapsules):
+                    m.drop_k5_copy()
         return (torch.cat(losses),
                 {k: torch.cat([a[k] for a in auxes]) for k in auxes[0]},
                 y_hats, n_globals)

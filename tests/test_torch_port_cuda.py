@@ -9,7 +9,9 @@ serving artifacts (export.py) loaded on the card, their launch counts
 and outputs; --remat's step; the general routing kernels K3g/K4g and
 the dispatch between them and the tuned K3/K4; tools.capsule_interpret
 through K3 against its CPU run; each kernel through its registered
-operator after a NaN fill of shared memory; --scan_epoch's captured
+operator after a NaN fill of shared memory; K5 (CapsuleNet's primary
+capsules) against its plain version, its launches in serving and the
+fused two-stage scores through it; --scan_epoch's captured
 epochs against the eager loop (CapsuleNet through K3/K4, dropout
 masks, --remat, bf16 capsule eval after train replays, the launch
 counts under replay).
@@ -30,9 +32,10 @@ from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.data import loader
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
     resolve_device)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
-    CapsuleNet, ConvNet, DarkNet)
+    CapsuleNet, ConvNet, DarkNet, capsule_net)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import (
-    _build, crop, decode, input_stage as ist, pool, quant, routing)
+    _build, crop, decode, input_stage as ist, pool, primary_caps as pc,
+    quant, routing)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.params import Params
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.tools import (
     capsule_interpret)
@@ -853,6 +856,126 @@ def test_ops_after_nan_fill(card):
         torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-6)
     after = _launches()
     assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1, 1)
+
+
+# ------------------------------------------------------------ K5
+
+# B 1 (one ragged tile, K split over all 8 chunks), 7, 64 (41 tiles, K
+# split in 3), 65, 512 (324 tiles, split in 2) and 513 (a ragged last
+# tile)
+PRIMARY_CAPS_BATCHES = [1, 7, 64, 65, 512, 513]
+
+
+def _primary_caps_operands(card, b, kind):
+    """A map (B, 256, 24, 24) channels-last, as cuDNN leaves conv1's, and
+    stacked weights and bias at torch's initial scale (U(+-1/128))."""
+    x = torch.randn((b, 24, 24, 256), generator=card, device="cuda")
+    if kind == "relu":  # conv1's map: relu'd, half of it zeros
+        x = torch.relu(x)
+    w = (torch.rand((128, 256, 8, 8), generator=card, device="cuda") * 2
+         - 1) / 128
+    bias = (torch.rand((128,), generator=card, device="cuda") * 2 - 1) / 128
+    return x.permute(0, 3, 1, 2), w, bias
+
+
+@pytest.mark.parametrize("kind", ["randn", "relu"])
+@pytest.mark.parametrize("b", PRIMARY_CAPS_BATCHES)
+def test_primary_caps_kernel_matches_plain(card, b, kind):
+    """K5 after a NaN fill of shared memory, within rtol/atol 1e-5 of the
+    plain version (cuDNN with TF32 off): each 3xTF32 product keeps about
+    2^-22 of |a b|, and the kernel sums K = 16,384 products in another
+    order (the tensor cores' partial sums over 64 of K, added in IEEE
+    f32), some 1e-6 of the capsules' unit scale; one-pass TF32 is ~1e-3
+    off."""
+    x, w, bias = _primary_caps_operands(card, b, kind)
+    before = pc.primary_caps.launches
+    _build.fill_shared_memory(float("nan"))
+    got = pc.primary_caps(x, pc.prepare_weights(w), bias)
+    torch.cuda.synchronize()
+    assert pc.primary_caps.launches == before + 1
+    assert got.shape == (b, 1296, 8)
+    torch.testing.assert_close(got, pc.primary_caps_plain(x, w, bias, 8, 2),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b", [64, 512])
+def test_primary_caps_kernel_is_deterministic(card, b):
+    """Two calls on the same input give the same bits, the split K's
+    partial sums included (added in split order)."""
+    x, w, bias = _primary_caps_operands(card, b, "relu")
+    wp = pc.prepare_weights(w)
+    runs = []
+    for _ in range(2):
+        _build.fill_shared_memory(float("nan"))
+        runs.append(pc.primary_caps(x, wp, bias))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_primary_caps_kernel_refuses_what_it_does_not_take(card):
+    x, w, bias = _primary_caps_operands(card, 2, "relu")
+    wp = pc.prepare_weights(w)
+    with pytest.raises(ValueError, match="channels-last"):
+        pc.primary_caps(x.contiguous(), wp, bias)
+    with pytest.raises(TypeError, match="f32"):
+        pc.primary_caps(x.double(), wp, bias)
+    with pytest.raises(ValueError, match="need x"):
+        pc.primary_caps(x[:, :, :16], wp, bias)
+    with pytest.raises(ValueError, match="need wp"):
+        pc.primary_caps(x, w, bias)
+
+
+def test_primary_caps_launches_in_serving_only(card):
+    """K5 launches once a serving forward of CapsuleNet (eager and
+    through `make_classifier_fn`), on conv1's map as cuDNN leaves it
+    (channels-last: no copy), and not under grad mode with trainable
+    weights."""
+    model = CapsuleNet(43, seed=0).cuda().eval()
+    x = torch.rand((5, 32, 32, 3), generator=card, device="cuda")
+    seen = []
+    model.primary_capsules.register_forward_pre_hook(
+        lambda m, args: seen.append(
+            args[0].is_contiguous(memory_format=torch.channels_last)))
+    before = pc.primary_caps.launches
+    with torch.inference_mode():
+        model(x)
+    assert pc.primary_caps.launches == before + 1
+    fn = export.make_classifier_fn(model)
+    with torch.inference_mode():
+        fn(x)
+    assert pc.primary_caps.launches == before + 2
+    with torch.enable_grad():
+        scores = model(x)
+    assert scores.requires_grad
+    assert pc.primary_caps.launches == before + 2
+    with torch.no_grad():
+        model(x)
+    torch.cuda.synchronize()
+    assert pc.primary_caps.launches == before + 3
+    assert seen == [True] * 4
+
+
+def test_two_stage_class_scores_through_k5(card, monkeypatch):
+    """`make_two_stage_fn` at 32 frames of 448 px, its 16 boxes a frame
+    cropped (conf_th 0): the 512 crops' class scores through K5
+    within 1e-5 of the same fn on the plain primary capsules."""
+    det = DarkNet(1, 43, seed=2).cuda()
+    cls = CapsuleNet(43, seed=3).cuda()
+    fn = export.make_two_stage_fn(det, cls, n_boxes=1, n_classes=43,
+                                  img_size=448, max_crops=16, conf_th=0.0)
+    x = torch.rand((32, 448, 448, 3), generator=card, device="cuda")
+    before = pc.primary_caps.launches
+    with torch.inference_mode():
+        out = fn(x)
+    assert pc.primary_caps.launches == before + 1
+    assert bool(out["valid"].any())
+    monkeypatch.setattr(capsule_net, "takes_k5", lambda *args: False)
+    with torch.inference_mode():
+        want = fn(x)["class_scores"]
+    torch.cuda.synchronize()
+    assert pc.primary_caps.launches == before + 1
+    assert out["class_scores"].shape == (32, 16, 43)
+    torch.testing.assert_close(out["class_scores"], want, rtol=0, atol=1e-5)
 
 
 # ------------------------------------------------------------ --scan_epoch

@@ -156,9 +156,10 @@ def test_detector_bf16_matches_jax_by_channel_group(setup, int8_net,
 
 
 def test_classifiers_match_jax(tmp_path):
-    """CapsuleNet f32 (pallas routing: a cyt::routing node, the plain K3
-    on the CPU) against JAX's XLA routing at rtol 1e-4 (the port's
-    capsule parity band); the ConvNet in bf16 against JAX's bf16 artifact
+    """CapsuleNet f32 (a cyt::primary_caps node and, under the pallas
+    routing, a cyt::routing node: the plain K5 and K3 on the CPU) against
+    JAX's XLA routing at rtol 1e-4 (the port's capsule parity band); the
+    ConvNet in bf16 against JAX's bf16 artifact
     within a bf16 rounding of the scores (rtol 0.05, atol 5e-3); the bf16
     CapsuleNet artifact (the bf16 route weights cast inside the program)
     against its live module."""
@@ -169,7 +170,7 @@ def test_classifiers_match_jax(tmp_path):
         JaxCapsuleNet(43, routing_impl="xla"), cvars), batch=4)
     call = _port_artifact(tmp_path, "caps", export.make_classifier_fn(caps),
                           shape=(32, 32, 3))
-    assert _nodes(call) == ["cyt.routing.default"]
+    assert _nodes(call) == ["cyt.primary_caps.default", "cyt.routing.default"]
     (scores, labels), (jscores, jlabels) = call(x), jcall(x)
     np.testing.assert_allclose(scores.numpy(), np.asarray(jscores),
                                rtol=1e-4, atol=1e-5)

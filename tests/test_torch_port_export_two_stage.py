@@ -32,7 +32,7 @@ assert setup and int8_net
 
 @pytest.mark.parametrize("classifier", ["cnn", "capsule"])
 def test_two_stage_matches_jax(setup, classifier, tmp_path):
-    """The fused two-stage artifacts in f32 (K2, K1, and K3 with
+    """The fused two-stage artifacts in f32 (K2, K1, and K5 and K3 with
     CapsuleNet): the same valid crops as JAX's artifact and the class
     scores within the two-stage parity band (rtol 1e-4, atol 5e-5: the
     detectors differ by the BN fold's rounding, the crops by XLA's fused
@@ -51,7 +51,8 @@ def test_two_stage_matches_jax(setup, classifier, tmp_path):
         model, cls, **TAIL), batch=4)
     assert _nodes(call) == sorted(
         ["cyt.input_stage.default"] + ["cyt.pool_leaky.default"] * 4
-        + ["cyt.routing.default"] * (classifier == "capsule"))
+        + ["cyt.primary_caps.default", "cyt.routing.default"]
+        * (classifier == "capsule"))
     got = _by_candidate(call(x))
     np.testing.assert_array_equal(got["valid"], want["valid"])
     assert got["valid"].any()
