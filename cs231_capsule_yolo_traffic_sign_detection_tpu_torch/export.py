@@ -14,11 +14,17 @@ routing a ``cyt::routing`` node; loaded on a card each node launches its
 kernel, on the CPU it runs the kernel's plain version.  The int8
 artifacts hold none (their products are ``torch._int_mm``).
 
-Functions, with the JAX package's names:
+Functions, with the JAX package's names where it has them:
+  detector_forward      -- the detector's serving forward of a dtype,
+    the one place a dtype picks it; every detector fn below, and the
+    CLI's detector serving (`predict._serve_batches`), build on it;
   make_detector_fn / make_int8_detector_fn / make_classifier_fn /
   make_grid_fn / make_crops_fn / make_two_stage_fn /
-  make_int8_two_stage_fn -- the serving computations (the live predict
-    paths call the same functions);
+  make_int8_two_stage_fn / make_serving_two_stage_fn -- the serving
+    computations; the CLI's predict serves the classifier through
+    `make_classifier_fn` and the fused two-stage through
+    `make_serving_two_stage_fn`, and decodes the detector's gathered
+    grid with the detector fns' decode;
   export_serving        -- a serving fn -> the artifact's bytes, with a
     symbolic batch dimension unless ``batch=`` pins it;
   save / load_serving   -- file round trip; load returns a callable on
@@ -44,6 +50,7 @@ Deviations from the JAX package:
 """
 
 import copy
+import functools
 import io
 
 import numpy as np
@@ -76,27 +83,55 @@ def _decode(y, *, n_boxes, n_classes, img_size, max_boxes=None, conf_th,
     return d
 
 
+def detector_forward(det, dtype=torch.float32, *, n_boxes, n_classes,
+                     x_cal=None):
+    """The DarkNet ``det``'s serving forward in ``dtype``, x (B, S, S, 3)
+    f32 -> f32 grid.  float32 / bfloat16: BN folded
+    (`prepare_serving`), then `darknet_serving_apply` (K2 for block 1,
+    K1 at the other four pools), in full float32 on a card
+    (`device.keep_f32`).  int8: the int8-resident chain
+    (`quant.darknet_int8_resident_apply`, neither K1 nor K2) on ``det``
+    quantized with scales calibrated on ``x_cal`` (a representative
+    batch), or on ``det`` when it is `quant.quantize_darknet`'s output
+    already."""
+    if dtype == torch.int8:
+        q = det if isinstance(det, dict) else quant.quantize_darknet(
+            det.state_dict(), x_cal=x_cal)
+        return lambda x: quant.darknet_int8_resident_apply(
+            q, x.float(), n_boxes=n_boxes, n_classes=n_classes)
+    keep_f32(det)
+    p = prepare_serving(det.state_dict(), dtype)
+    return lambda x: darknet_serving_apply(p, x, n_boxes=n_boxes,
+                                           n_classes=n_classes, dtype=dtype)
+
+
+def _detector_fn(det, dtype, x_cal=None, *, n_boxes, n_classes, img_size,
+                 conf_th=0.5, use_nms=False):
+    """`detector_forward` then `_decode`, the build a
+    ``cyt.setup.prepare`` span and the first call a
+    ``cyt.setup.first_call`` (`profiling`)."""
+    with profiling.span(profiling.SETUP_PREPARE):
+        forward = detector_forward(det, dtype, n_boxes=n_boxes,
+                                   n_classes=n_classes, x_cal=x_cal)
+
+    def fn(x):
+        return _decode(forward(x), n_boxes=n_boxes, n_classes=n_classes,
+                       img_size=img_size, conf_th=conf_th, use_nms=use_nms)
+
+    return profiling.first_call(fn)
+
+
 def make_detector_fn(model, *, n_boxes, n_classes, img_size, conf_th=0.5,
                      use_nms=False, dtype=torch.float32):
     """Detection serving fn: x (B, S, S, 3) f32 -> the decode dict.
 
-    The BN-folded serving forward (`darknet_serving_apply`: K2 for block
-    1, K1 at the other four pools, in ``dtype``) on ``model``'s weights,
-    then the full-width grid decode (every g*g*B candidate) and, with
-    ``use_nms``, the greedy NMS.  The build is a ``cyt.setup.prepare``
-    span, the fn's first call a ``cyt.setup.first_call`` (`profiling`).
-    A model on a card serves in full float32 (`device.keep_f32`)."""
-    with profiling.span(profiling.SETUP_PREPARE):
-        keep_f32(model)
-        p = prepare_serving(model.state_dict(), dtype)
-
-    def fn(x):
-        y = darknet_serving_apply(p, x, n_boxes=n_boxes, n_classes=n_classes,
-                                  dtype=dtype)
-        return _decode(y, n_boxes=n_boxes, n_classes=n_classes,
-                       img_size=img_size, conf_th=conf_th, use_nms=use_nms)
-
-    return profiling.first_call(fn)
+    `detector_forward` in ``dtype`` (float32 | bfloat16) on ``model``'s
+    weights, then the full-width grid decode (every g*g*B candidate)
+    and, with ``use_nms``, the greedy NMS.  The build is a
+    ``cyt.setup.prepare`` span, the fn's first call a
+    ``cyt.setup.first_call`` (`profiling`)."""
+    return _detector_fn(model, dtype, n_boxes=n_boxes, n_classes=n_classes,
+                        img_size=img_size, conf_th=conf_th, use_nms=use_nms)
 
 
 def make_classifier_fn(model):
@@ -118,18 +153,12 @@ def make_classifier_fn(model):
 def make_int8_detector_fn(qparams, *, n_boxes, n_classes, img_size,
                           conf_th=0.5, use_nms=False):
     """`make_detector_fn`'s contract over the calibrated int8-resident
-    chain (`quant.darknet_int8_resident_apply`); the int8 weights, their
-    scales and the static activation scales are constants of the
+    chain (``qparams``: `quant.quantize_darknet`'s); the int8 weights,
+    their scales and the static activation scales are constants of the
     program."""
-
-    def fn(x):
-        y = quant.darknet_int8_resident_apply(qparams, x.float(),
-                                              n_boxes=n_boxes,
-                                              n_classes=n_classes)
-        return _decode(y, n_boxes=n_boxes, n_classes=n_classes,
-                       img_size=img_size, conf_th=conf_th, use_nms=use_nms)
-
-    return fn
+    return _detector_fn(qparams, torch.int8, n_boxes=n_boxes,
+                        n_classes=n_classes, img_size=img_size,
+                        conf_th=conf_th, use_nms=use_nms)
 
 
 def make_grid_fn(model):
@@ -137,16 +166,6 @@ def make_grid_fn(model):
     (B, g, g, 5) f32."""
     model.eval()
     return lambda x: model(x).float()
-
-
-def _make_classify(cls_model, qparams_cls=None):
-    """The fused tail's classifier on centered crops: the int8 ConvNet
-    chain when ``qparams_cls`` (quant.quantize_convnet) is given, else
-    ``cls_model`` in eval mode."""
-    if qparams_cls is not None:
-        return lambda flat: quant.convnet_int8_apply(qparams_cls, flat)
-    cls_model.eval()
-    return cls_model
 
 
 def _crops(x, d, cap_input):
@@ -199,74 +218,81 @@ def make_crops_fn(det_model, *, n_boxes, n_classes, img_size, cap_input=32,
     return fn
 
 
+def _two_stage_fn(det, cls_model, dtype, x_cal=None, qparams_cls=None, *,
+                  n_boxes, n_classes, img_size, cap_input=32, max_crops=16,
+                  conf_th=0.5, use_nms=False, with_grid=False):
+    """`detector_forward` in ``dtype`` then `_two_stage_tail`, whose
+    classifier is the int8 ConvNet chain when ``qparams_cls``
+    (`quant.quantize_convnet`'s) is given, else ``cls_model`` in eval
+    mode and in its own dtype.  Spans as `_detector_fn`'s."""
+    with profiling.span(profiling.SETUP_PREPARE):
+        keep_f32(cls_model)
+        forward = detector_forward(det, dtype, n_boxes=n_boxes,
+                                   n_classes=n_classes, x_cal=x_cal)
+        classify = (cls_model.eval() if qparams_cls is None else
+                    functools.partial(quant.convnet_int8_apply, qparams_cls))
+        tail = dict(classify=classify, n_boxes=n_boxes, n_classes=n_classes,
+                    img_size=img_size, cap_input=cap_input,
+                    max_crops=max_crops, conf_th=conf_th, use_nms=use_nms,
+                    with_grid=with_grid)
+
+    def fn(x):
+        return _two_stage_tail(x, forward(x), **tail)
+
+    return profiling.first_call(fn)
+
+
 def make_two_stage_fn(det_model, cls_model, *, n_boxes, n_classes, img_size,
                       cap_input=32, max_crops=16, conf_th=0.5, use_nms=False,
                       dtype=torch.float32, with_grid=False):
     """Fused two-stage serving fn: detect -> crop -> classify in one
-    program (JAX COMPAT #33).  The detector is `make_detector_fn`'s
-    forward in ``dtype`` (K2, K1), the classifier ``cls_model`` in its
-    own dtype (K3 for CapsuleNet under the pallas routing).  Crops are
-    sampled from the img_size input, not the full-resolution frame, and
-    only the top ``max_crops`` boxes are classified, as in the JAX
-    package.  Spans and float32 on a card as `make_detector_fn`'s.  For
-    the int8 detector use `make_int8_two_stage_fn`."""
-    with profiling.span(profiling.SETUP_PREPARE):
-        keep_f32(det_model, cls_model)
-        p = prepare_serving(det_model.state_dict(), dtype)
-        tail = dict(classify=_make_classify(cls_model), n_boxes=n_boxes,
-                    n_classes=n_classes, img_size=img_size,
-                    cap_input=cap_input, max_crops=max_crops,
-                    conf_th=conf_th, use_nms=use_nms, with_grid=with_grid)
-
-    def fn(x):
-        y = darknet_serving_apply(p, x, n_boxes=n_boxes, n_classes=n_classes,
-                                  dtype=dtype)
-        return _two_stage_tail(x, y, **tail)
-
-    return profiling.first_call(fn)
+    program (JAX COMPAT #33).  The detector is `detector_forward` in
+    ``dtype`` (float32 | bfloat16: K2, K1), the classifier ``cls_model``
+    in its own dtype (K5 and K3 for CapsuleNet under the pallas
+    routing).  Crops are sampled from the img_size input, not the
+    full-resolution frame, and only the top ``max_crops`` boxes are
+    classified, as in the JAX package.  Spans and float32 on a card as
+    `make_detector_fn`'s.  For the int8 detector use
+    `make_int8_two_stage_fn` or `make_serving_two_stage_fn`."""
+    return _two_stage_fn(det_model, cls_model, dtype, n_boxes=n_boxes,
+                         n_classes=n_classes, img_size=img_size,
+                         cap_input=cap_input, max_crops=max_crops,
+                         conf_th=conf_th, use_nms=use_nms,
+                         with_grid=with_grid)
 
 
 def make_int8_two_stage_fn(qparams, cls_model, *, n_boxes, n_classes,
                            img_size, cap_input=32, max_crops=16, conf_th=0.5,
                            use_nms=False, with_grid=False, qparams_cls=None):
-    """`make_two_stage_fn` over the int8-resident detector; the
-    classifier is the int8 ConvNet chain when ``qparams_cls`` is given,
-    else ``cls_model`` in its dtype (CapsuleNet stays f32: no quantized
-    routing, JAX COMPAT #35)."""
-    tail = dict(classify=_make_classify(cls_model, qparams_cls),
-                n_boxes=n_boxes, n_classes=n_classes, img_size=img_size,
-                cap_input=cap_input, max_crops=max_crops, conf_th=conf_th,
-                use_nms=use_nms, with_grid=with_grid)
-
-    def fn(x):
-        y = quant.darknet_int8_resident_apply(qparams, x.float(),
-                                              n_boxes=n_boxes,
-                                              n_classes=n_classes)
-        return _two_stage_tail(x, y, **tail)
-
-    return fn
+    """`make_two_stage_fn` over the int8-resident detector (``qparams``);
+    the classifier is the int8 ConvNet chain when ``qparams_cls`` is
+    given, else ``cls_model`` in its dtype (CapsuleNet stays f32: no
+    quantized routing, JAX COMPAT #35)."""
+    return _two_stage_fn(qparams, cls_model, torch.int8,
+                         qparams_cls=qparams_cls, n_boxes=n_boxes,
+                         n_classes=n_classes, img_size=img_size,
+                         cap_input=cap_input, max_crops=max_crops,
+                         conf_th=conf_th, use_nms=use_nms,
+                         with_grid=with_grid)
 
 
 def make_serving_two_stage_fn(det_model, cls_model, *, dtype, x_cal=None,
                               **common):
-    """The fused two-stage fn of a serving dtype, as the live
+    """The fused two-stage fn of any serving dtype, as the live
     ``--device_crop`` path and `export_two_stage_from_checkpoints` build
-    it: f32 / bf16 through `make_two_stage_fn`; int8 through
-    `make_int8_two_stage_fn`, the detector calibrated on ``x_cal`` (a
-    representative (B, S, S, 3) batch) and a ConvNet classifier
-    quantized on the crops `make_crops_fn` cuts from it."""
-    if dtype != torch.int8:
-        return make_two_stage_fn(det_model, cls_model, dtype=dtype, **common)
-    qparams = quant.quantize_darknet(det_model.state_dict(), x_cal=x_cal)
+    it: `detector_forward` in ``dtype`` (int8 calibrated on ``x_cal``, a
+    representative (B, S, S, 3) batch), and under int8 a ConvNet
+    classifier quantized on the crops `make_crops_fn` cuts from
+    ``x_cal``."""
     qparams_cls = None
-    if isinstance(cls_model, ConvNet):
+    if dtype == torch.int8 and isinstance(cls_model, ConvNet):
         crop_keys = ("n_boxes", "n_classes", "img_size", "cap_input",
                      "max_crops", "conf_th")
         crops = make_crops_fn(det_model, **{k: common[k] for k in crop_keys
                                             if k in common})(x_cal)
         qparams_cls = quant.quantize_convnet(cls_model.state_dict(), crops)
-    return make_int8_two_stage_fn(qparams, cls_model,
-                                  qparams_cls=qparams_cls, **common)
+    return _two_stage_fn(det_model, cls_model, dtype, x_cal, qparams_cls,
+                         **common)
 
 
 class _Serving(torch.nn.Module):
@@ -418,23 +444,21 @@ def export_from_checkpoint(params, model_dir, restore_file, *, batch=None,
         _check_int8(params.model, x_cal)
     dev = resolve_device(device)
     shape = _input_shape(params)
+    if x_cal is not None:
+        x_cal = torch.as_tensor(x_cal, dtype=torch.float32).to(dev)
     with torch.no_grad():
         model = restore_model(_with_dtype(params, dtype), model_dir,
                               restore_file, dev)
-        det = dict(n_boxes=int(params.get("n_boxes", 0)),
-                   n_classes=int(params.n_classes), img_size=shape[0],
-                   conf_th=conf_th, use_nms=use_nms)
-        if dtype == torch.int8:
-            qparams = quant.quantize_darknet(
-                model.state_dict(),
-                x_cal=torch.as_tensor(x_cal, dtype=torch.float32).to(dev))
-            fn = make_int8_detector_fn(qparams, **det)
-        elif params.model in ("cnn", "capsule"):
+        if params.model in ("cnn", "capsule"):
             fn = make_classifier_fn(model)
         elif params.model == "darkcapsule":
             fn = make_grid_fn(model)
         else:
-            fn = make_detector_fn(model, dtype=dtype, **det)
+            fn = _detector_fn(model, dtype, x_cal,
+                              n_boxes=int(params.n_boxes),
+                              n_classes=int(params.n_classes),
+                              img_size=shape[0], conf_th=conf_th,
+                              use_nms=use_nms)
     return export_serving(fn, shape, batch=batch, platforms=platforms,
                           device=dev), fn
 

@@ -1,19 +1,25 @@
 """Inference (counterpart of the JAX predict.py: dark_pred, class_pred,
 dark_class_pred).
 
+The CLI's predict serves through export.py's serving functions, those
+the benchmark measures.
+
 `dark_detect`: restore the reference-format checkpoint of a darknet
-detector (darknet_r, B=1 C=43, or darknet_d, B=2 C=0), fold BN, resize
-on the device, run the serving forward batch by batch (f32 / bf16:
-ops/input_stage.darknet_serving_apply, the input-stage and pool+leaky
-kernels on a card; int8: the calibrated int8-resident chain of
-ops/quant.py), decode the full grid on the device, optionally NMS, and
-flatten the boxes in grid-scan order; with ``crops``, also each box's
-crop from its full-resolution frame.  `dark_pred` is the JAX function's
-contract on top: the frames annotated (viz.py), the ground truth too.
+detector (darknet_r, B=1 C=43, or darknet_d, B=2 C=0), stage and resize
+the frames on the device (`ops.preprocess.preprocess_images`), run
+`export.detector_forward` of the serving dtype batch by batch (f32 /
+bf16: BN folded, the input-stage and pool+leaky kernels on a card; int8:
+the int8-resident chain, calibrated on the first batch), decode the
+gathered grid on the device with the detector fns' decode, optionally
+NMS, and flatten the boxes in grid-scan order; with ``crops``, also
+each box's crop from its full-resolution frame.  `dark_pred` is the JAX
+function's contract on top: the frames annotated (viz.py), the ground
+truth too.
 
 `class_pred`: restore the classifier ``params.model`` names (CapsuleNet,
-with the fused routing kernel on a card, or ConvNet) and score crops
-batch by batch.
+with K5 and the fused routing kernel on a card, or ConvNet), stage the
+crops to the device batch by batch (`ops.preprocess.stage`) and score
+them with `export.make_classifier_fn`.
 
 `dark_class_detect`: the two-stage detect-then-classify pipeline, on
 either darknet detector (on darknet_d the combine metrics come out
@@ -46,11 +52,10 @@ from .data.loader import center_rgb
 from .device import compute_dtype, module_dtype, resolve_device
 from .models import CapsuleNet, ConvNet, DarkCapsuleNet, DarkNet
 from .models.registry import resolve_routing_impl
-from .ops import decode as decode_ops, quant
+from .ops import decode as decode_ops
 from .ops.boxes import combine_y_hat, y_to_boxes_vec
 from .ops.crop import frame_crops
-from .ops.input_stage import darknet_serving_apply, prepare_serving
-from .ops.preprocess import preprocess_images
+from .ops.preprocess import preprocess_images, stage
 from .parallel import mesh as par
 from .train import checkpoint as ckpt
 
@@ -133,37 +138,26 @@ def _serve_batches(det, images, params, dev, mesh=None):
     """The detector over ``images`` in batches of ``params.batch_size``:
     yields each batch's input on the device (the port's resize, 0-255
     uncentered) and its f32 grid; under ``mesh``, of this rank's rows of
-    the batch (`parallel.mesh.batch_rows`).
-
-    ``params.compute_dtype`` float32 / bfloat16: the BN-folded serving
-    forward (K2 for block 1, K1 at the other four pools on a card).
-    int8 (JAX predict.py:153-171): BN folded, weights quantized and the
-    18 activation scales calibrated on the FIRST batch, then the
-    int8-resident chain (ops/quant.py: im2col and s8 x s8 -> s32
-    products, int8 pools; neither K1 nor K2 runs); under a mesh every
-    rank calibrates on the whole first batch.  Each batch's work is a
+    the batch (`parallel.mesh.batch_rows`).  The forward is
+    `export.detector_forward` in ``params.compute_dtype``, built at the
+    first batch: int8 (JAX predict.py:153-171) calibrates its scales on
+    the whole first batch, on every rank alike.  Each batch's work is a
     ``cyt.serve.batch`` span (`profiling`), ``index`` its number."""
     dtype = compute_dtype(params.get("compute_dtype", "float32"))
-    nb, nc = int(params.n_boxes), int(params.n_classes)
     size, bs = int(params.darknet_input), int(params.batch_size)
-    sd = det.state_dict()
-    p = None if dtype == torch.int8 else prepare_serving(sd, dtype)
-    q = None
+    forward = None
     for i in range(0, len(images), bs):
         with profiling.span(profiling.SERVE_BATCH, index=i // bs):
             n = len(images[i:i + bs])
             a, b = (0, n) if mesh is None else par.batch_rows(n, mesh)
             xb = preprocess_images(images[i + a:i + b], size, dev)
-            if p is not None:
-                yb = darknet_serving_apply(p, xb, n_boxes=nb, n_classes=nc,
-                                           dtype=dtype)
-            else:
-                if q is None:   # static int8: calibrated once, on the batch
-                    x_cal = xb if (a, b) == (0, n) else preprocess_images(
-                        images[i:i + bs], size, dev)
-                    q = quant.quantize_darknet(sd, x_cal=x_cal)
-                yb = quant.darknet_int8_resident_apply(q, xb, n_boxes=nb,
-                                                       n_classes=nc)
+            if forward is None:  # int8 calibrates on the whole batch
+                x_cal = xb if (a, b) == (0, n) or dtype != torch.int8 \
+                    else preprocess_images(images[i:i + bs], size, dev)
+                forward = export.detector_forward(
+                    det, dtype, n_boxes=int(params.n_boxes),
+                    n_classes=int(params.n_classes), x_cal=x_cal)
+            yb = forward(xb)
         yield xb, yb
 
 
@@ -174,7 +168,7 @@ def dark_detect(images, model_dir, params, restore_file, device="cuda",
     images: uint8 (H, W, 3) BGR frames, fed uncentered (0-255) as the
     reference's predict path does.  ``params.compute_dtype`` selects
     float32, bfloat16 or int8 serving (`_serve_batches`; heads f32).
-    ``use_nms`` applies `decode_ops.nms_mask` after the decode (JAX
+    ``use_nms`` applies the greedy NMS after the decode (JAX
     predict.py:186-189; off by default, COMPAT #17).  Returns the y_hat
     grid (numpy, f32) and (image_indices, boxes_xy, classes_or_None)
     with boxes in each image's own frame; with ``crops``, returns
@@ -195,11 +189,9 @@ def dark_detect(images, model_dir, params, restore_file, device="cuda",
                                             mesh)],
             [len(images[i:i + bs]) for i in range(0, len(images), bs)],
             mesh)
-        decoded = decode_ops.decode_grid(
-            y_hat, n_classes=nc, n_boxes=nb, img_size=size, conf_th=conf_th)
-        if use_nms:
-            decoded = dict(decoded, valid=decode_ops.nms_mask(
-                decoded["xy"], decoded["conf"], decoded["valid"]))
+        decoded = export._decode(y_hat, n_boxes=nb, n_classes=nc,
+                                 img_size=size, conf_th=conf_th,
+                                 use_nms=use_nms)
         boxes = decode_ops.to_flat_host(
             decoded, image_hw=image_hw, img_size=size, with_classes=nc != 0)
         y_hat = y_hat.cpu().numpy()
@@ -242,8 +234,9 @@ def class_pred(x, model_dir, params, restore_file, device="cuda",
                mesh=None):
     """Classifier inference: scores (N, n_classes) f32 and argmax classes.
 
-    x: centered crops (N, 32, 32, 3), run in batches of
-    ``params.batch_size`` through the classifier ``params.model`` names
+    x: centered crops (N, 32, 32, 3), staged to the device in batches of
+    ``params.batch_size`` (`ops.preprocess.stage`) and scored by
+    `export.make_classifier_fn` on the classifier ``params.model`` names
     (under ``mesh``, each rank its rows of each batch, gathered).  Zero
     crops give empty arrays without a restore.
     """
@@ -252,14 +245,18 @@ def class_pred(x, model_dir, params, restore_file, device="cuda",
         y_hat = np.zeros((0, params.n_classes), np.float32)
         return y_hat, np.zeros((0,), np.int64)
     dev = resolve_device(mesh.device if mesh else device)
-    model = restore_classifier(params, model_dir, restore_file, dev).to(dev)
+    fn = export.make_classifier_fn(
+        restore_classifier(params, model_dir, restore_file, dev).to(dev))
+
+    def scores(xb):  # this rank's rows of a batch, staged and scored
+        a, b = (0, len(xb)) if mesh is None else par.batch_rows(len(xb), mesh)
+        return fn(stage(xb[a:b], dev))[0]
+
     bs = int(params.batch_size)
-    batches = [torch.from_numpy(x[i:i + bs]) for i in range(0, x.shape[0], bs)]
+    batches = [x[i:i + bs] for i in range(0, x.shape[0], bs)]
     with torch.inference_mode():
-        y_hat = par.gather_batches(
-            [model(xb.to(dev) if mesh is None
-                   else par.place_batch((xb,), mesh)[0]) for xb in batches],
-            [xb.shape[0] for xb in batches], mesh)
+        y_hat = par.gather_batches([scores(xb) for xb in batches],
+                                   [len(xb) for xb in batches], mesh)
     y_hat = y_hat.cpu().numpy()
     return y_hat, np.argmax(y_hat, axis=1)
 

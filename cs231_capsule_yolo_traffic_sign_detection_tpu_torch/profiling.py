@@ -28,13 +28,16 @@ The spans, where they sit:
 
   cyt.serve.batch       a batch of `predict._serve_batches` (``index``),
                         the CLI's serving loop; parents its stage spans
-  cyt.stage             `ops/preprocess.py:preprocess_images` (``images``;
-                        ``pinned``, those staged through pinned memory)
-  cyt.stage.gather      its ``np.stack`` of the frames; on a card, each
-                        chunk's write into pinned memory
-  cyt.stage.copy        each ``.to(device)`` of host frames (``bytes``,
-                        0 when the device is the host); on a card, each
-                        chunk's non-blocking copy, its enqueue alone
+  cyt.stage             `ops/preprocess.py:stage`, host rows (frames,
+                        crops, streamed batches) to the device
+                        (``images``; ``pinned``, those staged through
+                        pinned memory); `preprocess_images`' frames of
+                        mixed shapes
+  cyt.stage.gather      each chunk's ``np.stack`` into the host buffer,
+                        pinned on a card
+  cyt.stage.copy        each chunk's non-blocking copy, its enqueue
+                        alone (``bytes``, 0 when the device is the
+                        host); each ``.to(device)`` of a mixed frame
   cyt.fetch             `ops/decode.py:to_flat_host_with_extras`
                         (``images``; ``boxes``, the boxes it unpacked)
   cyt.fetch.wait        its ``.cpu()`` of the decode arrays and extras

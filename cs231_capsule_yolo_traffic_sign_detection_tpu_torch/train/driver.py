@@ -90,6 +90,7 @@ from ..models import CapsuleNet, ConvNet, DarkCapsuleNet, DarkNet
 from ..models.capsule_net import CapsuleRouting, PrimaryCapsules
 from ..models.darknet import freeze_darknet, load_darknet19_npz
 from ..models.registry import resolve_routing_impl
+from ..ops.preprocess import stage
 from ..parallel import mesh as par
 from ..parallel.collectives import BatchShard
 from . import checkpoint as ckpt, steps
@@ -142,37 +143,6 @@ def build_model(params, seed, device):
                         dropout=dropout, dtype=dtype, seed=seed,
                         remat=remat)
     return model.to(device)
-
-
-class _PinnedStager:
-    """The streamed loop's host-to-device copies: each batch is copied
-    into one of two pinned buffers per tensor and sent with a
-    non-blocking copy; a buffer is reused once the copy that read it has
-    finished (its event)."""
-
-    def __init__(self, device):
-        self.device = device
-        self.bufs, self.events, self.turn = {}, [None, None], 0
-
-    def __call__(self, arrays):
-        slot, self.turn = self.turn, 1 - self.turn
-        if self.events[slot] is not None:
-            self.events[slot].synchronize()
-        out = []
-        for k, a in enumerate(arrays):
-            src = torch.from_numpy(a)
-            buf = self.bufs.get((slot, k))
-            if buf is None or buf.numel() < src.numel() \
-                    or buf.dtype != src.dtype:
-                buf = torch.empty(src.numel(), dtype=src.dtype,
-                                  pin_memory=True)
-                self.bufs[(slot, k)] = buf
-            staged = buf[:src.numel()].view(src.shape)
-            staged.copy_(src)
-            out.append(staged.to(self.device, non_blocking=True))
-        self.events[slot] = torch.cuda.Event()
-        self.events[slot].record()
-        return out
 
 
 class Trainer:
@@ -234,9 +204,6 @@ class Trainer:
         self._x_dtype = (torch.bfloat16 if self.model.dtype == torch.bfloat16
                          and not reads_x else torch.float32)
         self.stream = bool(params.get("stream", False))
-        self._stager = (_PinnedStager(self.device)
-                        if self.stream and self.device.type == "cuda"
-                        else None)
         self.prefetch_wait_s = 0.0  # the last epoch's, --stream only
         self.last_avg_iou = 0.0
         self._data = {}
@@ -322,13 +289,14 @@ class Trainer:
 
     def _streamed(self, x, y, order, n_batch):
         self.prefetch_wait_s = 0.0
-        cuda = self._stager is not None
+        # the prefetcher's views of its ring slot, valid until the next
+        # batch: `stage` copies them out first
         if self.mesh is None:
             it = ((xb, yb, xb.shape[0]) for xb, yb in data_stream.iter_batches(
-                x, y, order, n_batch, copy=not cuda))
+                x, y, order, n_batch, copy=False))
         else:
             it = data_stream.iter_batches_process_local(
-                x, y, order, n_batch, copy=not cuda,
+                x, y, order, n_batch, copy=False,
                 shard_rows=self.mesh.n_data,
                 row_slices=lambda m: par.process_row_slices(m, self.mesh))
         while True:
@@ -338,12 +306,8 @@ class Trainer:
             except StopIteration:
                 return
             self.prefetch_wait_s += time.perf_counter() - t0
-            yb = _labels(yb)
-            if cuda:
-                xt, yt = self._stager([xb, yb])
-            else:
-                xt, yt = torch.from_numpy(xb), torch.from_numpy(yb)
-            yield xt.to(self._x_dtype), yt, n_glob
+            yield (stage(xb, self.device).to(self._x_dtype),
+                   stage(_labels(yb), self.device), n_glob)
 
     def _shard(self, n_global):
         """(BatchShard or None, gradient group or None) of a train batch

@@ -1,7 +1,8 @@
 """PyTorch port on the card: the CUDA kernels against their plain
 versions, dark_pred, class_pred (CapsuleNet and ConvNet), the crop
 sampler and the two-stage pipeline on the card against the same calls
-on the CPU, one capsule train step on the card, and one darknet_r train
+on the CPU, one capsule train step on the card, --stream's batches and
+losses against the resident loop's, and one darknet_r train
 step on the card against the same step on the CPU, with its dropout
 masks from a seeded generator; the NMS, the int8 products
 (``torch._int_mm``) and int8 serving on the card against the CPU; the
@@ -397,6 +398,41 @@ def test_train_step_on_card(card):
     assert torch.isfinite(loss)
     for name, p in model.named_parameters():
         assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0, name
+
+
+def test_streamed_loop_bit_equals_resident_on_card(card):
+    """--stream on the card (ConvNet: BN, dropout 0.5): the batches
+    `ops.preprocess.stage` copies in through pinned memory, and the first
+    epoch's losses, equal the resident loop's to the bit under cuDNN's
+    deterministic algorithms, as tests/test_torch_port_stream.py holds
+    on the CPU."""
+    p = Params(model="cnn", n_classes=43, batch_size=8, dropout=0.5,
+               lr_runtime=1e-3, lr_decay=0.5, n_epochs=1, eval_every=1,
+               train_frac=1, summary=False, scan_epoch="off")
+    x, y, _, _ = loader.synthetic_dataset("cnn", p, 36, 4)
+    order = np.random.RandomState(1).permutation(36)
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for stream in (False, True):
+            p.stream = stream
+            t = driver.Trainer(p, seed=0, device="cuda", verbose=False)
+            assert t.stream == stream and not t.scan_epoch
+            batches = [(xb.clone(), yb.clone(), n) for xb, yb, n in
+                       t._batches("train", x, y, order, 5)]
+            np.random.seed(0)
+            t.train_epoch(x, y, 1e-3, metric_on=False)
+            runs.append((batches, t.last_losses.clone()))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (resident, losses_r), (streamed, losses_s) = runs
+    assert len(streamed) == len(resident) == 5
+    for (xr, yr, nr), (xs, ys, ns) in zip(resident, streamed):
+        assert xs.is_cuda and ys.is_cuda and nr == ns
+        assert xs.dtype == xr.dtype and torch.equal(xs, xr)
+        assert ys.dtype == yr.dtype and torch.equal(ys, yr)
+    assert losses_s.shape == (5,) and torch.equal(losses_s, losses_r)
 
 
 def _darknet_step(device, dtype, x, y):

@@ -1,8 +1,10 @@
-"""The port's staging of host frames (`ops/preprocess.py`): the chunked
-write-and-copy loop (`stage_chunks`) against ``np.stack`` and
-`preprocess_images` on the CPU, its spans and counts, and on the card
-the pinned path against the pageable one, two calls in flight at once,
-and the ``pinned`` count of the ``cyt.stage`` span.
+"""The port's staging of host arrays (`ops/preprocess.py:stage`): its
+chunked write-and-copy loop against ``np.stack`` and `preprocess_images`
+on the CPU, its spans and counts, `predict.class_pred`'s crops staged
+through it, `predict.dark_detect`'s grid against the shared detector
+forward (`export.detector_forward`), and on the card the pinned path
+against the pageable one, two calls in flight at once, and the
+``pinned`` count of the ``cyt.stage`` span.
 
 The card's tests skip without one.  This file imports nothing of JAX,
 so it also runs on a machine without it:
@@ -16,8 +18,16 @@ import numpy as np
 import pytest
 import torch
 
-from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import profiling
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch import (
+    export, predict, profiling)
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.device import (
+    compute_dtype)
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.models import (
+    ConvNet, DarkNet)
 from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.ops import preprocess
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.params import Params
+from cs231_capsule_yolo_traffic_sign_detection_tpu_torch.train import (
+    checkpoint as ckpt)
 
 CPU = [torch.profiler.ProfilerActivity.CPU]
 
@@ -50,27 +60,29 @@ def test_stage_chunks_writes_and_copies_every_frame(monkeypatch, n, chunk):
     frames = _frames(n)
     assert not frames[-1].flags.c_contiguous
     want = np.stack(frames)
-    host = torch.empty(want.shape, dtype=torch.uint8)
-    dest = torch.empty(want.shape, dtype=torch.uint8)
-    assert preprocess.stage_chunks(frames, host, dest) is dest
-    np.testing.assert_array_equal(host.numpy(), want)
-    np.testing.assert_array_equal(dest.numpy(), want)
-    assert torch.equal(preprocess.preprocess_batch(dest, 16),
+    got = preprocess.stage(frames, "cpu")
+    assert got.dtype == torch.uint8 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), want)
+    # an array's rows stage as the list of them does
+    assert torch.equal(preprocess.stage(want, "cpu"), got)
+    assert torch.equal(preprocess.preprocess_batch(got, 16),
                        preprocess.preprocess_images(frames, 16, "cpu"))
 
 
 @pytest.mark.parametrize("n", [5, 33])
 def test_stage_chunks_records_a_gather_and_a_copy_a_chunk(n):
     frames = _frames(n)
-    host = torch.empty((n, 12, 20, 3), dtype=torch.uint8)
-    dest = torch.empty_like(host)
     with torch.profiler.profile(activities=CPU):
-        preprocess.stage_chunks(frames, host, dest)
+        preprocess.stage(frames, "cpu")
     chunks = math.ceil(n / preprocess.CHUNK_FRAMES)
+    stages = [s for s in profiling.spans(profiling.STAGE)
+              if s.name == profiling.STAGE]
+    assert [s.args for s in stages] == [{"images": n, "pinned": 0}]
     assert len(profiling.spans(profiling.STAGE_GATHER)) == chunks
     copies = profiling.spans(profiling.STAGE_COPY)
     assert len(copies) == chunks
     assert all(s.args == {"bytes": 0} for s in copies)   # to the host
+    assert all(s.parent is stages[0] for s in copies)
 
 
 def test_the_host_stages_through_no_pinned_memory():
@@ -82,6 +94,56 @@ def test_the_host_stages_through_no_pinned_memory():
               if s.name == profiling.STAGE]
     assert [s.args for s in stages] == [{"images": 3, "pinned": 0},
                                         {"images": 3, "pinned": 0}]
+
+
+def _checkpoint(model_dir, model):
+    ckpt.save_checkpoint({"epoch": 0, "optim_dict": {},
+                          "state_dict": model.state_dict()}, False,
+                         str(model_dir))
+
+
+def test_class_pred_stages_each_batch_of_crops(tmp_path):
+    """class_pred's crops reach the device through `stage`, one
+    ``cyt.stage`` span a batch of ``batch_size`` crops, and score as
+    `export.make_classifier_fn` does on the same batches."""
+    params = Params(model="cnn", n_classes=43, batch_size=8)
+    model = ConvNet(43, seed=1)
+    _checkpoint(tmp_path, model)
+    x = np.random.RandomState(0).uniform(-1, 1, (20, 32, 32, 3)).astype(
+        np.float32)
+    with torch.profiler.profile(activities=CPU):
+        y_hat, classes = predict.class_pred(x, str(tmp_path), params, "last",
+                                            device="cpu")
+    stages = [s for s in profiling.spans(profiling.STAGE)
+              if s.name == profiling.STAGE]
+    assert [s.args for s in stages] == [{"images": n, "pinned": 0}
+                                        for n in (8, 8, 4)]
+    fn = export.make_classifier_fn(model)
+    with torch.inference_mode():
+        want = torch.cat([fn(torch.from_numpy(x[i:i + 8]))[0]
+                          for i in range(0, 20, 8)])
+    np.testing.assert_array_equal(y_hat, want.numpy())
+    np.testing.assert_array_equal(classes, np.argmax(y_hat, axis=1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_dark_detect_serves_the_shared_detector_forward(tmp_path, dtype):
+    """dark_detect's grid is `export.detector_forward`'s on the same
+    batch, int8 calibrated on that batch."""
+    params = Params(model="darknet_r", n_classes=43, n_boxes=1, n_grid=2,
+                    darknet_input=64, batch_size=4, compute_dtype=dtype)
+    model = DarkNet(1, 43, seed=1).eval()
+    _checkpoint(tmp_path, model)
+    frames = list(np.random.RandomState(2).randint(0, 256, (4, 64, 64, 3),
+                                                   dtype=np.uint8))
+    y_hat, _ = predict.dark_detect(frames, str(tmp_path), params, "last",
+                                   device="cpu")
+    x = preprocess.preprocess_images(frames, 64, "cpu")
+    with torch.inference_mode():
+        want = export.detector_forward(model, compute_dtype(dtype),
+                                       n_boxes=1, n_classes=43, x_cal=x)(x)
+    assert y_hat.shape == (4, 2, 2, 48)
+    np.testing.assert_array_equal(y_hat, want.numpy())
 
 
 @pytest.fixture
