@@ -31,10 +31,13 @@ The spans, where they sit:
   cyt.stage             `ops/preprocess.py:stage`, host rows (frames,
                         crops, streamed batches) to the device
                         (``images``; ``pinned``, those staged through
-                        pinned memory); `preprocess_images`' frames of
-                        mixed shapes
-  cyt.stage.gather      each chunk's ``np.stack`` into the host buffer,
-                        pinned on a card
+                        pinned memory; ``workers``, the threads that
+                        wrote the rows, 1 for the calling thread
+                        alone); `preprocess_images`' frames of mixed
+                        shapes
+  cyt.stage.gather      each chunk's write into the host buffer, pinned
+                        on a card: its ``np.stack``, or the calling
+                        thread's wait for the gather threads' rows
   cyt.stage.copy        each chunk's non-blocking copy, its enqueue
                         alone (``bytes``, 0 when the device is the
                         host); each ``.to(device)`` of a mixed frame
